@@ -1,0 +1,100 @@
+"""Community ("pathway") layer.
+
+Reference: ``src/pathway_explanations/pathways.py`` (L3).  Ragged community
+structure is host-side metadata, handled with numpy.  pandas is imported
+only where a DataFrame is built (:meth:`Pathways.aggregate`), so the rest of
+the port runs where pandas is not installed.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+
+class Pathways:
+    """Graph communities and their transformations.
+
+    ``communities`` is a list of lists of node names (str) or indices (int);
+    ``community_names`` defaults to indices.  The heterogeneous (dict) form
+    of the JAX package is not ported.
+    """
+
+    def __init__(self, communities, community_names=None):
+        if isinstance(communities, dict):
+            raise NotImplementedError("heterogeneous communities are not ported yet")
+        self.communities = communities
+        self.community_names = community_names
+        if self.community_names is None:
+            self.community_names = np.arange(len(communities)).tolist()
+
+    def comp_graph(self, names: Sequence) -> Tuple[list, list]:
+        """Keep only the part of each community that intersects the
+        computational graph; drop empty communities.
+
+        ``np.intersect1d`` string semantics preserved: the surviving elements
+        of each community come back sorted lexicographically as strings."""
+        names_array = np.array(names, dtype=str)
+        sub_pathway, sub_names = [], []
+        for community, cname in zip(self.communities, self.community_names):
+            common = np.intersect1d(np.array(community, dtype=str), names_array)
+            if len(common) > 0:
+                sub_pathway.append(common.tolist())
+                sub_names.append(cname)
+        return sub_pathway, sub_names
+
+    def names2inds(self, names: Sequence) -> List[List[int]]:
+        """Element-name lists -> index lists against the subgraph's names
+        (reference pathways.py:104)."""
+        if len(self.communities) and isinstance(self.communities[0][0], (int, np.integer)):
+            return self.communities
+        inds = []
+        names_array = np.array(names, dtype=str)
+        for community in self.communities:
+            community_array = np.array(community, dtype=str)
+            _, ind, _ = np.intersect1d(names_array, community_array, return_indices=True)
+            inds.append(ind.tolist())
+        return inds
+
+    def aggregate_arrays(
+        self, config_val, community_inds: Sequence[Sequence[int]]
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Mean config value per community as (names, scores), sorted by
+        score descending, communities without elements dropped."""
+        vals = np.asarray(config_val, np.float64)
+        elements, seg, lengths = segment_table(community_inds)
+        sums = np.bincount(seg, weights=vals[elements], minlength=len(lengths))
+        with np.errstate(invalid="ignore"):
+            scores = np.where(lengths > 0, sums / np.maximum(lengths, 1), np.nan)
+        names = np.asarray(list(self.community_names), object)
+        keep = ~np.isnan(scores)
+        sc, nm = scores[keep], names[keep]
+        o = np.argsort(-sc, kind="stable")
+        return nm[o], sc[o]
+
+    def aggregate(self, config_val, community_inds: Sequence[Sequence[int]]):
+        """:meth:`aggregate_arrays` as a DataFrame."""
+        return pathway_dataframe(*self.aggregate_arrays(config_val, community_inds))
+
+
+def pathway_dataframe(names, scores):
+    """Community scores as a pandas DataFrame (column ``score``, index
+    ``name``), in the order given."""
+    import pandas as pd
+
+    return pd.DataFrame({"score": scores}, index=pd.Index(names, name="name"))
+
+
+def segment_table(
+    community_inds: Sequence[Sequence[int]],
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Flatten ragged communities into (elements, segment_ids, lengths)."""
+    elements = np.concatenate(
+        [np.asarray(c, np.int32) for c in community_inds]
+    ) if community_inds else np.zeros((0,), np.int32)
+    seg = np.concatenate(
+        [np.full((len(c),), i, np.int32) for i, c in enumerate(community_inds)]
+    ) if community_inds else np.zeros((0,), np.int32)
+    lengths = np.array([len(c) for c in community_inds], np.int32)
+    return elements, seg, lengths

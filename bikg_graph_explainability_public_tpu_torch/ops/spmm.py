@@ -1,0 +1,62 @@
+"""Sparse aggregation entries (the torch-scatter/torch-sparse role).
+
+* :func:`weighted_gather_sum` — per-edge scalar weights over ``[..., N, F]``
+  features (the generic GCNConv layer path): a gather plus ``index_add``.
+* :func:`gather_sum_batched_separable` — rank-1 separable weights over
+  batch-contiguous ``[N, B*F]`` features (the ELL tier's layers >= 2).  It
+  scales the rows before and the outputs after, and aggregates with the
+  table's static validity only, through :func:`.spmm_cuda.gather_sum_static`:
+  the hand-written CUDA kernel on the card, its plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .spmm_cuda import gather_sum_static
+
+
+def weighted_gather_sum(
+    edge_weight: torch.Tensor,
+    feats: torch.Tensor,
+    senders: torch.Tensor,
+    receivers: torch.Tensor,
+    num_nodes: int,
+) -> torch.Tensor:
+    """out[..., v, :] = sum over edges e with receivers[e]==v of
+    edge_weight[..., e] * feats[..., senders[e], :].
+
+    Masked/padded edges must carry weight 0 (they then contribute nothing,
+    wherever their indices point)."""
+    msg = edge_weight[..., None] * feats[..., senders, :]
+    lead = msg.shape[:-2]
+    out = msg.new_zeros(lead + (num_nodes, msg.shape[-1]))
+    return out.index_add_(out.dim() - 2, receivers, msg)
+
+
+def gather_sum_batched_separable(
+    a_bn: torch.Tensor,         # [B, N_src] per-node per-sample factors
+    feats_bc: torch.Tensor,     # [N_src, B*F] batch-contiguous features
+    b: int,
+    *,
+    table,
+    post_a_bn: Optional[torch.Tensor] = None,  # [B, N_out] dest-side factors
+) -> torch.Tensor:              # [N_out, B*F] float32
+    """Batched aggregation with rank-1 separable weights.
+
+    ``out[v, s] = a[s,v] * sum over in-edges (u -> v) of the table of
+    a[s,u] * feats[u, s]`` — the GCN node-mask case, where the per-edge
+    weight ``mask[u]*mask[v]*deg^-1/2[u]*deg^-1/2[v]`` factors as
+    ``a[u]*a[v]`` with ``a = mask * deg^-1/2``.  The table carries no
+    self-loops (``build_neighbor_table`` drops them).  The destination-side
+    scale rides the kernel; the source-side scale is applied here.
+    """
+    f = feats_bc.shape[-1] // b
+    a_t = a_bn.t().to(feats_bc.dtype)  # [N_src, B]
+    a_out = a_t if post_a_bn is None else post_a_bn.t().to(feats_bc.dtype)
+    scaled = (feats_bc.view(-1, b, f) * a_t[:, :, None]).view(-1, b * f)
+    return gather_sum_static(
+        table, scaled, b, post_scale=a_out.float().contiguous()
+    )
