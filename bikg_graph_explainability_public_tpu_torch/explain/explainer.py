@@ -10,8 +10,8 @@ folded into a counter-based key (:mod:`..utils.prng`), so runs reproduce and
 repeats differ, and the same seed gives the JAX package's masks and
 surrogate initialisation bit for bit.
 
-Ported: homogeneous graphs, ``node_prediction`` and ``graph_prediction``.
-Edge problems and heterogeneous inputs raise ``NotImplementedError``.
+Ported: homogeneous graphs, ``node_prediction``, ``edge_prediction`` and
+``graph_prediction``.  Heterogeneous inputs are not ported.
 """
 
 from __future__ import annotations
@@ -91,9 +91,10 @@ class Explainer:
     model : a :class:`..models.adapter.Model`, the black box being explained
     params : hyperparameter dict (seed, interpret_samples, epochs, lr,
         l1_lambda, ... — reference ``config/configs.json``)
-    names : list of element names
+    names : list of element names: one per node, or one per edge for
+        ``edge_prediction``
     pathways / pathway_names : community structure (None → Shapley mode)
-    problem : "node_prediction" | "graph_prediction"
+    problem : "node_prediction" | "edge_prediction" | "graph_prediction"
     device : where the graph lives; ``None`` means the CUDA card.  It must
         be the model's device.
     """
@@ -142,13 +143,11 @@ class Explainer:
         assert problem.lower().strip() in canonical, (
             f"Unknown problem type {problem!r}; expected one of {canonical}"
         )
-        if "edge" in problem:
-            raise NotImplementedError("edge problems are not ported yet")
         assert isinstance(names, list), "Element names is not list"
         assert isinstance(model, Model), "model must be a Model adapter"
 
     def _explain(self, element, times: int = 1) -> Explanation:
-        """Explain one node or graph prediction; the arrays behind
+        """Explain one node, edge or graph prediction; the arrays behind
         :meth:`run`."""
         if "spmm_backend" in self.params:
             check_spmm_backend(self.params["spmm_backend"])
@@ -158,15 +157,31 @@ class Explainer:
         if "graph" not in self.problem:
             n_hops = self.model.get_hops()
             ind = extract_index(element, self.names)
+            is_edge = "edge" in self.problem
+            # edge queries seed the BFS at the query edge's receiver node,
+            # whose prediction the masked forwards read
+            seed = int(graph.host.receivers[ind]) if is_edge else ind
             # one extra hop, mirroring the reference (data.py:328)
             sub = extract_khop_subgraph(
-                graph, ind, n_hops + 1,
+                graph, seed, n_hops + 1,
                 pad_mode=self.params.get("pad_mode", "pow2") or "pow2",
             )
             sub_graph = sub.graph
             query = int(sub.query)
-            kept = sub.parent_nodes[: sub_graph.num_nodes]
-            sub_names = np.array(self.names, dtype=str)[kept].tolist()
+            names_array = np.array(self.names, dtype=str)
+            if is_edge:
+                if len(names_array) < graph.num_edges:
+                    raise AssertionError(
+                        "edge_prediction requires one name per EDGE "
+                        f"(got {len(names_array)} names for "
+                        f"{graph.num_edges} edges); node-length name "
+                        "lists only fit node/graph problems"
+                    )
+                kept_edges = np.nonzero(sub.parent_edge_mask)[0]
+                sub_names = names_array[kept_edges].tolist()
+            else:
+                kept = sub.parent_nodes[: sub_graph.num_nodes]
+                sub_names = names_array[kept].tolist()
             if pathways is not None:
                 pathways, pathway_names = Pathways(pathways, pathway_names).comp_graph(
                     sub_names
@@ -183,7 +198,8 @@ class Explainer:
             sub_pathway_inds = sub_pclass.names2inds(sub_names)
 
         elements = element_size(sub_graph, self.problem)
-        sampler = MaskSampler(elements, sub_graph.n_pad, self.params, sub_pathway_inds)
+        width = sub_graph.e_pad if "edge" in self.problem else sub_graph.n_pad
+        sampler = MaskSampler(elements, width, self.params, sub_pathway_inds)
         kd = repeat_split_key_data(int(self.params.get("seed", 0)), times)  # [T, 2, 2]
         sampled = [sampler.sample(kd[i, 0]) for i in range(times)]
         batch_size = sampled[0][2]
@@ -222,7 +238,7 @@ class Explainer:
         )
 
     def run(self, element, times: int = 1):
-        """Explain one node or graph prediction.
+        """Explain one node, edge or graph prediction.
 
         Returns (config_val_df, pathway_df): element scores and
         community-aggregated scores (None in Shapley mode), both sorted

@@ -1,8 +1,8 @@
 """Black-box model adapter (reference ``src/pathway_explanations/model.py``).
 
 Wraps a model module behind a uniform calling convention and provides the
-batched masked forward: a batch of B node-mask perturbations is one
-chunked forward with per-edge weight multipliers (the reference builds a
+batched masked forward: a batch of B node-mask or edge-mask perturbations
+is one chunked forward with per-edge weight multipliers (the reference builds a
 block-diagonal mega-graph instead, ``model.py:62-116``).
 """
 
@@ -71,15 +71,15 @@ class Model:
         chunk_size: int = 128,
         auto_chunk: bool = True,
     ) -> torch.Tensor:
-        """Outputs of the black box for every node-mask row.
+        """Outputs of the black box for every perturbation row.
 
-        masks: [M, N_pad] bool (numpy or tensor).  Returns [M] float32: the
-        query node's prediction per perturbation (node problems) or the
-        pooled graph prediction (graph problems).  Masks are taken in chunks
-        of ``chunk_size`` rows; the last chunk may be shorter.
+        masks: [M, S] bool (numpy or tensor), S = padded node count (node and
+        graph problems) or padded edge count (edge problems).  Returns [M]
+        float32: the query node's prediction per perturbation (node and edge
+        problems; for edges, the query edge's receiver) or the pooled graph
+        prediction (graph problems).  Masks are taken in chunks of
+        ``chunk_size`` rows; the last chunk may be shorter.
         """
-        if "edge" in problem:
-            raise NotImplementedError("edge problems are not ported yet")
         masks = torch.as_tensor(masks, device=self.device)
         if self.fast and isinstance(self.model_def, GCNNodeModel):
             return self._fast_engine(graph).query_outputs(
@@ -87,6 +87,7 @@ class Model:
             )
         base = graph.edge_mask.to(graph.x.dtype)
         snd, rcv = graph.senders, graph.receivers
+        is_edge = "edge" in problem
         is_graph = "graph" in problem
         nvalid = graph.node_mask.to(graph.x.dtype)
         # models exposing backbone/head run the head on the query row only
@@ -98,7 +99,7 @@ class Model:
 
         def rows(m):
             mf = m.to(graph.x.dtype)
-            ew = base * (mf[:, snd] * mf[:, rcv])  # [B, E]
+            ew = base * (mf if is_edge else mf[:, snd] * mf[:, rcv])  # [B, E]
             if split_head:
                 h = self.model_def.backbone(graph.x, snd, rcv, ew)
                 return self.model_def.head(h[:, query, :])[:, 0]

@@ -3,19 +3,19 @@
 Takes a :class:`.gnn.GCNNodeModel` and one padded graph, precomputes
 everything batch-invariant (the first layer's transformed features, the
 neighbour table, the dense adjacency or the query plans), and evaluates B
-node-mask perturbations at once:
+node-mask or edge-mask perturbations at once:
 
 * **dense** tier (N_pad <= DENSE_THRESHOLD, the computational-subgraph
   case): a node-masked GCN layer is ``h_b = diag(s_b) A diag(s_b) XW +
-  deg_b^-1 XW`` with ``s_b = m_b * rsqrt(deg_b)``: batched matmuls.  Node
+  deg_b^-1 XW`` with ``s_b = m_b * rsqrt(deg_b)``: batched matmuls, or with
+  ``backend="pallas"`` the fused hand-written layers
+  (:mod:`..ops.gcn_layer_cuda`, kernels 2.1 and 2.2).  Node and edge
   queries go through receptive-field plans that keep only the query's ball.
-* **ELL** tier (larger graphs): layer 1 contracts per-sample slot
-  coefficients with a batch-shared gather ``XW[nbr]``; layers >= 2 run the
-  separable gather-sum (:func:`..ops.spmm.gather_sum_batched_separable`),
-  which on the card is the hand-written CUDA kernel.
-
-Node-mask problems only: edge problems and the fused dense layers of the
-JAX package's ``backend="pallas"`` are later slices.
+* **ELL** tier (larger graphs, and every unrestricted edge-mask forward):
+  layer 1 contracts per-sample slot coefficients with a batch-shared gather
+  ``XW[nbr]``; layers >= 2 run the separable gather-sum for node masks
+  (kernel 2.3) and the weighted gather-sum for edge masks (kernel 2.4),
+  through :mod:`..ops.spmm`.
 """
 
 from __future__ import annotations
@@ -26,8 +26,14 @@ import numpy as np
 import torch
 
 from ..graph import host_view
-from ..ops.ell import build_neighbor_table, ell_aggregate_shared, gcn_coeffs_from_node_mask
-from ..ops.spmm import gather_sum_batched_separable
+from ..ops.ell import (
+    build_neighbor_table,
+    ell_aggregate_shared,
+    gcn_coeffs_from_edge_mask,
+    gcn_coeffs_from_node_mask,
+)
+from ..ops.gcn_layer_cuda import masked_gcn_layer, masked_gcn_layer_batched
+from ..ops.spmm import gather_sum_batched_separable, weighted_gather_sum_batched
 from ..runtime import native
 from ..utils.device import resolve_device
 from ..utils.padding import round_up_pow2
@@ -135,6 +141,77 @@ def _build_query_plan(graph, query: int, num_layers: int, device) -> Optional[Qu
     )
 
 
+class EdgeQueryPlan(NamedTuple):
+    """Receptive-field restriction for edge-masked forwards.
+
+    Same BFS geometry as :class:`QueryPlan`, but the per-sample adjacency is
+    rebuilt from the edge mask as a one-hot contraction over the (few) edges
+    inside the ball: gathered mask bits [B, E_i] @ one-hot placement matrix
+    [E_i, P_i * P_{i-1}] -> the layer's per-sample adjacency; degree rows
+    likewise.  Edge lists are padded to multiples of 16 with zero rows.
+    """
+
+    vp: torch.Tensor
+    p_sizes: Tuple[int, ...]
+    deg_eid: torch.Tensor
+    deg_onehot: torch.Tensor
+    layer_eid: Tuple[torch.Tensor, ...]
+    layer_onehot: Tuple[torch.Tensor, ...]
+
+
+def _pad16(*arrays):
+    """Pad 1-D arrays to a multiple of 16 (at least 16) with zeros; the last
+    array returned marks the real entries with 1.0."""
+    n = arrays[0].shape[0]
+    p = max(16, -(-n // 16) * 16)
+    val = np.zeros(p, np.float32)
+    val[:n] = 1.0
+    out = []
+    for a in arrays:
+        b = np.zeros(p, a.dtype)
+        b[:n] = a
+        out.append(b)
+    return out + [val]
+
+
+def _build_edge_query_plan(graph, query: int, num_layers: int, device) -> EdgeQueryPlan:
+    """Host-side BFS and one-hot placement matrices, uploaded once."""
+    snd, rcv, vp, pos, p_s, p_sizes = _ball_geometry(graph, query, num_layers)
+    eids = np.arange(graph.num_edges, dtype=np.int64)
+    keep = snd != rcv
+    s_k, r_k, e_k = snd[keep], rcv[keep], eids[keep]
+    rcv_pos, snd_pos = pos[r_k], pos[s_k]
+
+    def onehot(sel_rows, sel_cols, sel_eid, rows, cols):
+        rp, cp, ei, val = _pad16(
+            sel_rows.astype(np.int64), sel_cols.astype(np.int64), sel_eid
+        )
+        oh = np.zeros((rp.shape[0], rows * cols), np.float32)
+        oh[np.arange(rp.shape[0]), rp * cols + cp] = val
+        return torch.from_numpy(ei).to(device), torch.from_numpy(oh).to(device)
+
+    in_deg = rcv_pos >= 0
+    deg_eid, deg_onehot = onehot(
+        rcv_pos[in_deg], np.zeros(int(in_deg.sum()), np.int64), e_k[in_deg], p_s, 1
+    )
+    layer_eid, layer_onehot = [], []
+    prev = p_s
+    for p in p_sizes:
+        sel = (rcv_pos >= 0) & (rcv_pos < p) & (snd_pos >= 0) & (snd_pos < prev)
+        ei, oh = onehot(rcv_pos[sel], snd_pos[sel], e_k[sel], p, prev)
+        layer_eid.append(ei)
+        layer_onehot.append(oh)
+        prev = p
+    return EdgeQueryPlan(
+        vp=torch.from_numpy(vp).to(device),
+        p_sizes=p_sizes,
+        deg_eid=deg_eid,
+        deg_onehot=deg_onehot,
+        layer_eid=tuple(layer_eid),
+        layer_onehot=tuple(layer_onehot),
+    )
+
+
 def _chunks(masks: torch.Tensor, chunk: int):
     """Row chunks of ``chunk`` masks; the last may be shorter.  (The JAX
     engine runs the whole batch as one step when ``chunk`` does not divide
@@ -143,10 +220,14 @@ def _chunks(masks: torch.Tensor, chunk: int):
 
 
 class FastBatchedGCN:
-    """Batched node-masked forward engine for one (model, graph) pair.
+    """Batched masked forward engine for one (model, graph) pair.
 
     ``device=None`` means the CUDA card; the graph must live on the same
     device.  ``mode`` forces the "dense" or "ell" tier (default: by size).
+    ``backend`` picks the dense tier's unrestricted node-mask layers, with
+    the JAX package's names: ``"xla"`` runs them as unfused torch ops,
+    ``"pallas"`` as the fused hand-written CUDA layers (kernels 2.1 and
+    2.2; their plain versions on the CPU).  It changes nothing else.
     """
 
     def __init__(
@@ -158,10 +239,9 @@ class FastBatchedGCN:
         restrict: bool = True,
         device=None,
     ):
-        if backend != "xla":
-            raise NotImplementedError(
-                f"backend={backend!r}: the fused dense GCN layers are not ported"
-            )
+        if backend not in ("xla", "pallas"):
+            raise ValueError(f"unknown backend {backend!r}; 'xla' or 'pallas'")
+        self.backend = backend
         self.device = resolve_device(device)
         if graph.device != self.device:
             raise ValueError(f"graph is on {graph.device}, engine on {self.device}")
@@ -178,9 +258,16 @@ class FastBatchedGCN:
         w0 = conv0.weight.detach().cpu().numpy()
         x_np = host_view(graph).x[:, : conv0.in_features]
         self.xw0 = torch.from_numpy(x_np @ w0.T).to(self.device)  # [N, C1]
-        self.table = build_neighbor_table(graph) if mode == "ell" else None
+        # both tiers: edge-mask forwards of dense-mode engines use it too
+        self.table = build_neighbor_table(graph)
         self.adj = _dense_adjacency(graph, self.device) if mode == "dense" else None
+        self._adj16: Optional[torch.Tensor] = None  # bf16 copy, built once
         self._plans: dict = {}  # query -> Optional[QueryPlan]
+        self._edge_plans: dict = {}  # query -> EdgeQueryPlan
+
+    def _coeffs(self, masks: torch.Tensor, is_edge: bool):
+        fn = gcn_coeffs_from_edge_mask if is_edge else gcn_coeffs_from_node_mask
+        return fn(self.table, masks.float())
 
     # ------------------------------------------------------------------
     # dense-adjacency tier
@@ -192,6 +279,8 @@ class FastBatchedGCN:
         dis = torch.rsqrt(deg)  # [B, N]
         self_w = dis * dis  # [B, N] = 1/deg
         s = m * dis  # [B, N]
+        if self.backend == "pallas":
+            return self._dense_outputs_pallas(s, self_w)
 
         def layer(feats_w):
             # feats_w: [N, C] (first layer, batch-shared) or [B, N, C]
@@ -209,20 +298,41 @@ class FastBatchedGCN:
             h = finish(layer(hw) + self_w[:, :, None] * hw, conv)
         return h
 
+    def _dense_outputs_pallas(self, s: torch.Tensor, self_w: torch.Tensor) -> torch.Tensor:
+        """The fused layers: one kernel 2.1 call for the first conv layer,
+        one kernel 2.2 call for each later one."""
+        if self._adj16 is None:
+            self._adj16 = self.adj.to(torch.bfloat16)
+        convs = self.model.conv
+        h = masked_gcn_layer(
+            self._adj16, self.xw0, s, self_w, convs[0].bias, apply_relu=True
+        )
+        for conv in convs[1:]:
+            h = masked_gcn_layer_batched(
+                self._adj16,
+                h[..., : conv.in_features].contiguous(),
+                conv.weight.t().contiguous(),
+                s,
+                self_w,
+                conv.bias,
+                apply_relu=True,
+            )
+        return h
+
     @torch.no_grad()
     def batch_node_outputs(
         self, masks: torch.Tensor, is_edge: bool = False, g0: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        """Per-node backbone outputs for a chunk of node masks: [B, N, C_last].
+        """Per-node backbone outputs for a chunk of masks: [B, N, C_last].
+        Node masks are [B, N_pad]; edge masks (``is_edge``) are [B, E_pad]
+        and run on the table in both tiers.
 
         ``g0``: the batch-shared first-layer gather ``xw0[nbr]``; pass it in
         to compute it once for many chunks."""
-        if is_edge:
-            raise NotImplementedError("edge problems are not ported yet")
-        if self.mode == "dense":
+        if self.mode == "dense" and not is_edge:
             return self._dense_outputs(masks)
         mf = masks.float()
-        coeff, self_w = gcn_coeffs_from_node_mask(self.table, mf)  # [B,N,K], [B,N]
+        coeff, self_w = self._coeffs(mf, is_edge)  # [B,N,K], [B,N]
         convs = self.model.conv
         if g0 is None:
             g0 = self.xw0[self.table.nbr]
@@ -230,15 +340,23 @@ class FastBatchedGCN:
         if convs[0].bias is not None:
             h = h + convs[0].bias
         h = relu(h)
-        # node masks are separable: w[e] = a[snd]*a[rcv], a = mask * deg^-1/2
-        a_bn = mf * torch.sqrt(self_w)  # [B, N]
-        b, n = mf.shape
+        b, n = self_w.shape
+        if is_edge and len(convs) > 1:
+            # edge masks are not separable: the slot-layout coefficients of
+            # layer 1 are the weights of every later layer, [B,N,K] -> [N,K,B]
+            w_slot = coeff.permute(1, 2, 0).contiguous()
+        elif not is_edge:
+            # node masks are: w[e] = a[snd]*a[rcv], a = mask * deg^-1/2
+            a_bn = mf * torch.sqrt(self_w)  # [B, N]
         for conv in convs[1:]:
             hw = h[..., : conv.in_features] @ conv.weight.T  # [B, N, F]
             f_dim = hw.shape[-1]
             # batch-contiguous layout: every slot reads one contiguous row
             hw_t = hw.transpose(0, 1).reshape(n, b * f_dim)
-            out_t = gather_sum_batched_separable(a_bn, hw_t, b, table=self.table)
+            if is_edge:
+                out_t = weighted_gather_sum_batched(None, hw_t, b, table=self.table, w_slot=w_slot)
+            else:
+                out_t = gather_sum_batched_separable(a_bn, hw_t, b, table=self.table)
             h = out_t.view(n, b, f_dim).transpose(0, 1) + self_w[:, :, None] * hw
             if conv.bias is not None:
                 h = h + conv.bias
@@ -285,12 +403,64 @@ class FastBatchedGCN:
         # the query sits at row 0 of every prefix
         return self.model.head(h[:, 0, :])[:, 0]
 
-    def _plan_row_bytes(self, plan: QueryPlan, n_cols: int) -> int:
+    def edge_query_plan(self, query: int) -> EdgeQueryPlan:
+        """Receptive-field plan for edge-masked forwards (cached)."""
+        q = int(query)
+        if q not in self._edge_plans:
+            self._edge_plans[q] = _build_edge_query_plan(
+                self.graph, q, len(self.model.conv), self.device
+            )
+        return self._edge_plans[q]
+
+    def _restricted_edge_outputs(self, masks: torch.Tensor, plan: EdgeQueryPlan) -> torch.Tensor:
+        """Edge-masked forward restricted to the query's receptive field: [B]
+        query predictions.  The per-sample adjacency of each layer is
+        rebuilt from the edge mask by a one-hot contraction (masked edges
+        dropped, unit self-loops always on)."""
+        m = masks.float()  # [B, E_pad]
+        b = m.shape[0]
+        deg = 1.0 + m[:, plan.deg_eid] @ plan.deg_onehot  # [B, Ps]
+        dis = torch.rsqrt(deg)
+        self_w = dis * dis
+        xw0_v = self.xw0[plan.vp]
+        convs = self.model.conv
+
+        def layer_adj(i, prev, ni):
+            a = (m[:, plan.layer_eid[i]] @ plan.layer_onehot[i]).view(b, ni, prev)
+            return a * dis[:, :ni, None] * dis[:, None, :prev]
+
+        n0 = plan.p_sizes[0]
+        agg = layer_adj(0, plan.vp.shape[0], n0) @ xw0_v  # [B, P0, C1]
+        h = agg + self_w[:, :n0, None] * xw0_v[:n0]
+        if convs[0].bias is not None:
+            h = h + convs[0].bias
+        h = relu(h)
+        prev = n0
+        for i, conv in enumerate(convs[1:], start=1):
+            hw = h[..., : conv.in_features] @ conv.weight.T
+            ni = plan.p_sizes[i]
+            h = torch.matmul(layer_adj(i, prev, ni), hw) + self_w[:, :ni, None] * hw[:, :ni]
+            if conv.bias is not None:
+                h = h + conv.bias
+            h = relu(h)
+            prev = ni
+        return self.model.head(h[:, 0, :])[:, 0]
+
+    def _plan_row_bytes(self, plan, n_cols: int, is_edge: bool) -> int:
         """Estimated f32 bytes of restricted-forward intermediates PER mask
         row — sizes the auto-grown chunk (see ``query_outputs``)."""
         c1 = max(self.xw0.shape[1], max(c.weight.shape[0] for c in self.model.conv))
+        sizes = list(plan.p_sizes)
         ps = int(plan.vp.shape[0])
-        width = ps * c1 + 3 * sum(p * c1 for p in plan.p_sizes)
+        if is_edge:
+            prevs = [ps] + sizes[:-1]
+            width = (
+                sum(p * pv for p, pv in zip(sizes, prevs))
+                + 2 * sum(p * c1 for p in sizes)
+                + int(plan.deg_onehot.shape[0])
+            )
+        else:
+            width = ps * c1 + 3 * sum(p * c1 for p in sizes)
         return 4 * (n_cols + width)
 
     @torch.no_grad()
@@ -303,16 +473,19 @@ class FastBatchedGCN:
         auto_chunk: bool = True,
     ) -> torch.Tensor:
         """[B] query predictions (or pooled graph predictions) for bool
-        node masks [B, N_pad].
+        masks [B, N_pad] (node and graph problems) or [B, E_pad] (edge
+        problems, whose query is the query edge's receiver node).
 
         ``auto_chunk=False`` pins the restricted path to ``chunk_size`` rows
         per step — callers that set an explicit ``forward_chunk`` keep their
         memory bound even if the byte estimate would permit growth."""
-        if "edge" in problem:
-            raise NotImplementedError("edge problems are not ported yet")
+        is_edge = "edge" in problem
         is_graph = "graph" in problem
         if self.restrict and not is_graph and isinstance(query, (int, np.integer)):
-            plan = self.query_plan(int(query))
+            if is_edge:
+                plan, step = self.edge_query_plan(int(query)), self._restricted_edge_outputs
+            else:
+                plan, step = self.query_plan(int(query)), self._restricted_outputs
             if plan is not None:
                 m_total = masks.shape[0]
                 # the restricted intermediates scale with the (small) ball,
@@ -321,22 +494,22 @@ class FastBatchedGCN:
                 chunk_r = chunk_size
                 if auto_chunk:
                     cap = max(
-                        1, _RESTRICT_CHUNK_BYTES // self._plan_row_bytes(plan, masks.shape[1])
+                        1,
+                        _RESTRICT_CHUNK_BYTES
+                        // self._plan_row_bytes(plan, masks.shape[1], is_edge),
                     )
                     if m_total <= cap:
                         chunk_r = m_total
                     else:
                         while chunk_r * 2 <= cap and m_total % (chunk_r * 2) == 0:
                             chunk_r *= 2
-                return torch.cat(
-                    [self._restricted_outputs(c, plan) for c in _chunks(masks, chunk_r)]
-                )
+                return torch.cat([step(c, plan) for c in _chunks(masks, chunk_r)])
         nvalid = self.graph.node_mask.float()
         # the batch-shared gather, once for all chunks
         g0 = self.xw0[self.table.nbr] if self.mode == "ell" else None
 
         def run_chunk(mchunk):
-            h = self.batch_node_outputs(mchunk, g0=g0)
+            h = self.batch_node_outputs(mchunk, is_edge, g0=g0)
             if is_graph:
                 out = self.model.head(h)  # [b, N, out]
                 return (out[..., 0] * nvalid).sum(-1) / torch.clamp(nvalid.sum(), min=1.0)

@@ -140,6 +140,18 @@ def gcn_coeffs_from_node_mask(
     return coeff, dis * dis
 
 
+def gcn_coeffs_from_edge_mask(
+    table: NeighborTable, edge_mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The same for a batch of edge masks ``[B, E]`` indexed by original
+    edge id: the weight of slot (v,k) is the mask bit of its edge."""
+    w = table.valid * edge_mask[:, table.eid]  # [B, N, K]
+    deg = 1.0 + w.sum(dim=2)
+    dis = torch.rsqrt(deg)
+    coeff = w * dis[:, :, None] * dis[:, table.nbr]
+    return coeff, dis * dis
+
+
 def ell_aggregate_shared(coeff_b: torch.Tensor, gathered: torch.Tensor) -> torch.Tensor:
     """Batched aggregation with a batch-shared gathered table.
 

@@ -2,11 +2,17 @@
 
 * :func:`weighted_gather_sum` — per-edge scalar weights over ``[..., N, F]``
   features (the generic GCNConv layer path): a gather plus ``index_add``.
+* :func:`weighted_gather_sum_batched` — per-edge, per-sample weights over
+  batch-contiguous ``[N, B*F]`` features (the edge-mask layers >= 2),
+  through :func:`.spmm_cuda.batched_gather_sum` (kernel 2.4).
 * :func:`gather_sum_batched_separable` — rank-1 separable weights over
-  batch-contiguous ``[N, B*F]`` features (the ELL tier's layers >= 2).  It
+  batch-contiguous ``[N, B*F]`` features (the node-mask layers >= 2).  It
   scales the rows before and the outputs after, and aggregates with the
-  table's static validity only, through :func:`.spmm_cuda.gather_sum_static`:
-  the hand-written CUDA kernel on the card, its plain version on the CPU.
+  table's static validity only, through :func:`.spmm_cuda.gather_sum_static`
+  (kernel 2.3).
+
+Both run the hand-written CUDA kernel on the card and its plain version on
+the CPU.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from .spmm_cuda import gather_sum_static
+from .spmm_cuda import batched_gather_sum, gather_sum_static
 
 
 def weighted_gather_sum(
@@ -34,6 +40,27 @@ def weighted_gather_sum(
     lead = msg.shape[:-2]
     out = msg.new_zeros(lead + (num_nodes, msg.shape[-1]))
     return out.index_add_(out.dim() - 2, receivers, msg)
+
+
+def weighted_gather_sum_batched(
+    edge_weight_eb: Optional[torch.Tensor],  # [E, B] per-edge per-sample weights
+    feats_bc: torch.Tensor,     # [N, B*F] batch-contiguous features
+    b: int,
+    *,
+    table,
+    w_slot: Optional[torch.Tensor] = None,  # [N, K, B] slot-layout weights
+) -> torch.Tensor:              # [N, B*F] float32
+    """Batched aggregation: ``out[v] = sum over the table's in-edges e of
+    w[e, :] * feats[snd_e]``, the per-sample weight broadcast over each
+    sample's F block.
+
+    ``edge_weight_eb`` rows are indexed by the table's ``eid`` (original
+    edge ids).  Callers that already hold slot-layout weights (the engine's
+    coefficient tensor) pass ``w_slot``, and ``edge_weight_eb`` may then be
+    None.  The table carries no self-loops (``build_neighbor_table`` drops
+    them).
+    """
+    return batched_gather_sum(table, edge_weight_eb, feats_bc, b, w_slot=w_slot)
 
 
 def gather_sum_batched_separable(

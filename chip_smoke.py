@@ -8,25 +8,37 @@ Run from the root of a checkout, on a machine with one CUDA card::
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. header: card name and power limit, torch and CUDA versions; TF32 off;
-2. build the hand-written CUDA kernel from the checkout's sources;
-3. the kernel against its plain PyTorch version on the card, at the
-   production shape (100k nodes / 1M edges, B=50, F=128, float32) and in
-   the edge cases, with its time, the plain version's, a library call's and
-   the least time the card could take;
+2. build every hand-written CUDA kernel from the checkout's sources, one
+   ``nvcc`` per source, all started together;
+3. each kernel against its plain PyTorch version on the card, with its
+   time, the plain version's, a library call's and the least time the card
+   could take: 2.3 and 2.4 (the ELL gather-sums) at the production shape
+   (100k nodes / 1M edges, B=50, F=128, float32) and in the edge cases;
+   2.1 and 2.2 (the fused dense layers) at the bench's subgraph shape
+   (2048 nodes / 16384 edges, B=250, C=128) and in the edge cases;
 4. the node path: ``Explainer._explain`` (the arrays behind
    ``Explainer.run``) on ``node_prediction`` for the repo's trained 36-node
    fixture (Shapley and community mode) and for GCN-128x2 on a 20k-node /
    160k-edge graph (4 queries), checked against the same runs on the CPU
    (the first query of the 20k graph);
-5. the graph path: ``graph_prediction`` with GCN-128x2 on the 100k / 1M
-   graph (ELL tier), counting the kernel's launches; then the engine's
+5. the edge path: the same on ``edge_prediction`` with one name per edge
+   (receptive-field plans: no kernel launches);
+6. the graph path: ``graph_prediction`` with GCN-128x2 on the 100k / 1M
+   graph (ELL tier), counting kernel 2.3's launches; then the engine's
    set-up and forwards timed apart, the forwards profiled by operation,
    and one chunk of the engine compared with the same engine routed
-   through the plain version.
+   through the plain version;
+7. the unrestricted ELL edge forward: 1000 edge masks through
+   ``FastBatchedGCN(restrict=False)`` on the 100k / 1M graph, counting
+   kernel 2.4's launches, timed, profiled and compared as in 6;
+8. the fused dense forward: ``FastBatchedGCN(backend="pallas")`` against
+   ``backend="xla"`` on the 2048 / 16384 graph, 1000 masks, counting the
+   launches of kernels 2.1 and 2.2, and one chunk against the plain route.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout,
-the script exits with code 2 and prints no result.
+Every path runs with all launch counts set to 0 just before it and read
+just after.  The line before the last is ``{"kernels": [...]}``; the last
+line is ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
+checkout, the script exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -40,13 +52,19 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "bikg_graph_explainability_public_tpu_torch"
 
-#: H100 SXM device-memory rate and float32 (non-tensor-core) peak
+#: H100 SXM device-memory rate, float32 (non-tensor-core) and dense bf16
+#: tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 #: production shape of the ELL gather-sum (bench.py's "fullgraph" graph)
 BIG_N, BIG_E, BIG_B, HIDDEN, N_FEATS = 100_000, 1_000_000, 50, 128, 84
 NODE_N, NODE_E, NODE_QUERIES = 20_000, 160_000, 4
+#: the bench's computational-subgraph shape (bench.py:55) and its chunk
+SUB_N, SUB_E, SUB_B = 2048, 16384, 250
+#: the unrestricted edge forward's query row (bench.py:577)
+EDGE_QUERY = 17
 
 
 def log(msg: str) -> None:
@@ -125,11 +143,52 @@ def phase_header() -> str:
 
 
 def phase_build() -> None:
-    from bikg_graph_explainability_public_tpu_torch.ops.spmm_cuda import KERNEL
+    from bikg_graph_explainability_public_tpu_torch.ops import cuda_build
 
-    KERNEL.library()
-    log(f"build: gather_sum_static in {KERNEL.build_seconds:.2f} s")
-    log(KERNEL.build_log.strip())
+    t0 = time.perf_counter()
+    libs = cuda_build.build_all()
+    log(f"build: {len(libs)} sources in {time.perf_counter() - t0:.2f} s wall")
+    for lib in libs:
+        log(f"build: {os.path.basename(lib.source)} in {lib.build_seconds:.2f} s")
+        for line in ptxas_summary(lib.build_log):
+            log(f"  {line}")
+
+
+def ptxas_summary(report: str) -> list:
+    """One line per compiled kernel from ``nvcc -Xptxas -v``: registers,
+    shared memory and spills."""
+    lines, name, spills = [], None, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            lines.append(f"{name[-70:]}: {line.split(':', 1)[1].strip()}; {spills}")
+            name = None
+    return lines
+
+
+def all_kernels():
+    """Every kernel's launch counter, by name."""
+    from bikg_graph_explainability_public_tpu_torch.ops import gcn_layer_cuda, spmm_cuda
+
+    return {
+        "gather_sum_static": spmm_cuda.GATHER_SUM_STATIC,
+        "batched_gather_sum": spmm_cuda.BATCHED_GATHER_SUM,
+        "masked_gcn_layer": gcn_layer_cuda.MASKED_GCN_LAYER,
+        "masked_gcn_layer_batched": gcn_layer_cuda.MASKED_GCN_LAYER_BATCHED,
+        "masked_gcn_layer_batched.transform": gcn_layer_cuda.TRANSFORM,
+    }
+
+
+def reset_counts() -> None:
+    for k in all_kernels().values():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: k.launches for name, k in all_kernels().items()}
 
 
 def _table(n, e, k, seed, device, *, dead_rows=0, dead_srcs=0):
@@ -166,29 +225,38 @@ def check_kernel_case(table, b, f, dtype, scale, seed, label):
     ps = torch.randn((n, b), generator=gen, device=dev) if scale else None
     got = gather_sum_static(table, feats, b, post_scale=ps)
     want = gather_sum_static_plain(table, feats, b, post_scale=ps)
+    err = hold_gather_sum(table, got, want, label)
+    log(
+        f"kernel case {label}: N={n} K={table.k} b={b} F={f} {str(dtype)[6:]} "
+        f"post_scale={scale} deg0_rows={int((table.deg == 0).sum())} "
+        f"nan_rows={int((~used).sum())} max_abs_err={err:.3e} ok"
+    )
+    return err, feats, ps
+
+
+def hold_gather_sum(table, got, want, label) -> float:
+    """A gather-sum kernel's output against its plain version's: finite,
+    exact zeros on rows of degree 0, and equal up to float32 summation order
+    (bf16 inputs go to both sides alike); returns the max abs error."""
+    import torch
+
     torch.cuda.synchronize()
     deg0 = table.deg == 0
     if not torch.isfinite(got).all():
         raise AssertionError(f"{label}: non-finite kernel output")
     if deg0.any() and got[deg0].abs().max().item() != 0.0:
         raise AssertionError(f"{label}: rows of degree 0 are not exact zeros")
-    # f32: only the order of the sum may differ; bf16 inputs go to both sides
     if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
         raise AssertionError(
             f"{label}: kernel disagrees with plain, max abs err "
             f"{(got - want).abs().max().item():.3e}"
         )
-    err = (got - want).abs().max().item()
-    log(
-        f"kernel case {label}: N={n} K={table.k} b={b} F={f} {str(dtype)[6:]} "
-        f"post_scale={scale} deg0_rows={int(deg0.sum())} "
-        f"nan_rows={int((~used).sum())} max_abs_err={err:.3e} ok"
-    )
-    return err, feats, ps
+    return (got - want).abs().max().item()
 
 
-def phase_kernel(dev) -> dict:
-    """Production shape, then the edge cases; returns the kernel's record."""
+def phase_kernel(dev):
+    """Kernel 2.3: production shape, then the edge cases; returns the
+    kernel's record and the production table."""
     import numpy as np
     import torch
     from bikg_graph_explainability_public_tpu_torch.graph import from_arrays
@@ -203,6 +271,7 @@ def phase_kernel(dev) -> dict:
     table = build_neighbor_table(graph)
     deg = table.deg
     log(f"host: 100k/1M graph + neighbour table in {time.perf_counter() - t0:.2f} s (K={table.k})")
+    del graph
     err, feats, ps = check_kernel_case(
         table, BIG_B, HIDDEN, torch.float32, True, 0, "production"
     )
@@ -278,7 +347,273 @@ def phase_kernel(dev) -> dict:
         "bound_by": bound_by,
         "library_ms": library_ms,
         "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+    }, table
+
+
+def check_weighted_case(table, b, f, dtype, seed, label):
+    """Kernel 2.4 against plain on one input, with NaN in the source rows
+    that no valid slot names and a third of the weights exactly zero (the
+    masked edges); returns (max_abs_err, feats, w_slot)."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.ops.spmm_cuda import (
+        batched_gather_sum, batched_gather_sum_plain,
+    )
+
+    dev = table.nbr.device
+    n, k = table.nbr.shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn((n, b * f), generator=gen, device=dev).to(dtype)
+    used = torch.zeros(n, dtype=torch.bool, device=dev)
+    used[table.nbr[table.valid > 0]] = True
+    feats[~used] = float("nan")  # rows no valid slot names
+    w_slot = torch.randn((n, k, b), generator=gen, device=dev)
+    w_slot[torch.rand((n, k, b), generator=gen, device=dev) < 1 / 3] = 0.0
+    w_slot *= table.valid[:, :, None]
+    got = batched_gather_sum(table, None, feats, b, w_slot=w_slot)
+    want = batched_gather_sum_plain(table, feats, b, w_slot)
+    # the kernel's fused multiply-adds round once per term, the plain
+    # version's products and sums twice: within the same tolerance
+    err = hold_gather_sum(table, got, want, label)
+    log(
+        f"kernel case {label}: N={n} K={k} b={b} F={f} {str(dtype)[6:]} "
+        f"deg0_rows={int((table.deg == 0).sum())} nan_rows={int((~used).sum())} "
+        f"zero_weights={int(((w_slot == 0) & (table.valid[:, :, None] > 0)).sum())} "
+        f"max_abs_err={err:.3e} ok"
+    )
+    return err, feats, w_slot
+
+
+def phase_kernel_weighted(dev, table) -> dict:
+    """Kernel 2.4 at the production shape on 2.3's table, then the edge
+    cases; returns the kernel's record."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.ops.spmm_cuda import (
+        batched_gather_sum, batched_gather_sum_plain,
+    )
+
+    err, feats, w_slot = check_weighted_case(
+        table, BIG_B, HIDDEN, torch.float32, 1, "2.4 production"
+    )
+    ms = cuda_ms(lambda: batched_gather_sum(table, None, feats, BIG_B, w_slot=w_slot), 20)
+    plain_ms = cuda_ms(lambda: batched_gather_sum_plain(table, feats, BIG_B, w_slot), 3)
+    # the engine's [B, N, K] -> [N, K, B] transpose of the coefficients
+    # that become the slot weights (outside the kernel)
+    coeff = w_slot.permute(2, 0, 1).contiguous()
+    transpose_ms = cuda_ms(lambda: coeff.permute(1, 2, 0).contiguous(), 10)
+    del coeff
+    deg = table.deg
+    nbr, valid = table.nbr, table.valid > 0
+    w = BIG_B * HIDDEN
+    # least bytes: each referenced source row once, each valid slot's index
+    # and B weights once, deg once, the output written once
+    sum_deg = int(deg.sum())
+    uniq_src = int(torch.unique(nbr[valid]).numel())
+    bytes_min = uniq_src * w * 4 + sum_deg * (4 + BIG_B * 4) + BIG_N * 4 + BIG_N * w * 4
+    ops = 2 * sum_deg * w  # a multiply and an add per gathered element
+    bound_ms = max(bytes_min / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    bound_by = "bytes" if bytes_min / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
+    gather_bytes = (sum_deg + BIG_N) * w * 4 + sum_deg * (4 + BIG_B * 4)
+    log(
+        f"kernel 2.4 timing at production shape: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}, {bytes_min / 1e9:.3f} GB) "
+        f"gather_bound_ms={gather_bytes / HBM_BYTES_PER_S * 1e3:.4f} ({gather_bytes / 1e9:.3f} GB) "
+        f"effective_gather_GBps={gather_bytes / ms / 1e6:.1f}; "
+        f"[B,N,K]->[N,K,B] transpose of the coefficients {transpose_ms:.4f} ms"
+    )
+    del feats, w_slot
+
+    cases = [  # (b, K, F, dtype)
+        (1, 8, 128, torch.float32),
+        (1, 16, 128, torch.bfloat16),
+        (1, 32, 128, torch.float32),
+        (16, 8, 64, torch.bfloat16),
+        (16, 16, 64, torch.float32),
+        (16, 32, 64, torch.float32),
+        (48, 8, 6, torch.float32),
+        (48, 16, 8, torch.bfloat16),
+        (48, 32, 6, torch.float32),
+        (48, 32, 8, torch.bfloat16),
+    ]
+    for i, (b, k, f, dtype) in enumerate(cases):
+        t = _table(5000, 5000 * k // 2, k, seed=30 + i, device=dev, dead_rows=300, dead_srcs=200)
+        case_err, _, _ = check_weighted_case(t, b, f, dtype, 200 + i, f"2.4 edge{i}")
+        err = max(err, case_err)
+    return {
+        "name": "batched_gather_sum",
+        "route": "cuda",
+        "source": f"{PKG}/ops/csrc/batched_gather_sum.cu",
+        "replaces": "bikg_graph_explainability_public_tpu/ops/spmm_pallas.py:1074",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "library_note": "no PyTorch call takes per-slot, per-sample weights "
+        "(torch.sparse.mm takes one weight per edge for all samples)",
+        "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+        "transpose_ms": transpose_ms,
     }
+
+
+def _dense_case(dev, n, e, b, c, c_in, seed):
+    """Inputs of the fused layers on a random graph's dense adjacency, with
+    the engine's mask scalings of 70 %-kept node masks."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.graph import from_arrays
+    from bikg_graph_explainability_public_tpu_torch.models.fast_gcn import _dense_adjacency
+
+    feat, ei, _ = random_graph(n, e, seed)
+    adj = _dense_adjacency(from_arrays(feat, ei, device=dev), dev)[:n, :n].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m = (torch.rand((b, n), generator=gen, device=dev) > 0.3).float()
+    dis = torch.rsqrt(1.0 + m * (m @ adj.T))
+    return dict(
+        adj16=adj.to(torch.bfloat16),
+        s=(m * dis).contiguous(),
+        self_w=(dis * dis).contiguous(),
+        xw=torch.randn((n, c), generator=gen, device=dev),
+        h=torch.relu(torch.randn((b, n, c_in), generator=gen, device=dev)),
+        w_t=torch.randn((c_in, c), generator=gen, device=dev) / c_in ** 0.5,
+        bias=0.1 * torch.randn((c,), generator=gen, device=dev),
+    )
+
+
+def check_dense_case(x, bias: bool, relu: bool, label: str):
+    """Kernels 2.1 and 2.2 against their plain versions on one input;
+    returns (err_2_1, err_2_2)."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.ops import gcn_layer_cuda as g
+
+    bi = x["bias"] if bias else None
+    got = g.masked_gcn_layer(x["adj16"], x["xw"], x["s"], x["self_w"], bi, relu)
+    want = g.masked_gcn_layer_plain(x["adj16"], x["xw"], x["s"], x["self_w"], bi, relu)
+    torch.cuda.synchronize()
+    # 2.1: identical bf16 roundings and exact bf16 products, another
+    # summation order only
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+        raise AssertionError(
+            f"{label} 2.1: kernel disagrees with plain, max abs err "
+            f"{(got - want).abs().max().item():.3e}"
+        )
+    err1 = (got - want).abs().max().item()
+    del got, want
+    got = g.masked_gcn_layer_batched(x["adj16"], x["h"], x["w_t"], x["s"], x["self_w"], bi, relu)
+    want = g.masked_gcn_layer_batched_plain(x["adj16"], x["h"], x["w_t"], x["s"], x["self_w"], bi, relu)
+    # 2.2: h @ W in float32 on both sides, in another order, so a term's
+    # bf16 rounding may differ by one bf16 ulp (2^-8 of the term): the
+    # bound is that ulp of every term, summed, plus float32 order
+    hw = torch.matmul(x["h"], x["w_t"])
+    scaled = (x["s"][:, :, None] * hw).to(torch.bfloat16).float().abs()
+    ulp = 2.0 ** -8 * x["s"][:, :, None] * torch.matmul(x["adj16"].float(), scaled)
+    diff = (got - want).abs()
+    torch.cuda.synchronize()
+    if not (diff <= ulp + 1e-5 * (1.0 + want.abs())).all():
+        raise AssertionError(
+            f"{label} 2.2: kernel disagrees with plain beyond one bf16 ulp per "
+            f"term, max abs err {diff.max().item():.3e}"
+        )
+    err2 = diff.max().item()
+    b, n, c = want.shape
+    log(
+        f"kernel case {label}: N={n} B={b} C_in={x['h'].shape[2]} C={c} bias={bias} "
+        f"relu={relu} 2.1 max_abs_err={err1:.3e} 2.2 max_abs_err={err2:.3e} "
+        f"(bf16-ulp bound max {ulp.max().item():.3e}) ok"
+    )
+    return err1, err2
+
+
+def phase_kernel_dense(dev):
+    """Kernels 2.1 and 2.2 at the bench's subgraph shape, then the edge
+    cases; returns their records."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.ops import gcn_layer_cuda as g
+
+    x = _dense_case(dev, SUB_N, SUB_E, SUB_B, HIDDEN, HIDDEN, seed=2)
+    err1, err2 = check_dense_case(x, True, True, "dense production")
+    a, s, sw, bias = x["adj16"], x["s"], x["self_w"], x["bias"]
+    ms1 = cuda_ms(lambda: g.masked_gcn_layer(a, x["xw"], s, sw, bias), 20)
+    plain1 = cuda_ms(lambda: g.masked_gcn_layer_plain(a, x["xw"], s, sw, bias), 3)
+    ms2 = cuda_ms(lambda: g.masked_gcn_layer_batched(a, x["h"], x["w_t"], s, sw, bias), 20)
+    plain2 = cuda_ms(lambda: g.masked_gcn_layer_batched_plain(a, x["h"], x["w_t"], s, sw, bias), 3)
+    hw_out = torch.empty((SUB_B, SUB_N, HIDDEN), device=dev)
+    transform_ms = cuda_ms(
+        lambda: g.TRANSFORM.launch(
+            x["h"].data_ptr(), x["w_t"].data_ptr(), hw_out.data_ptr(),
+            SUB_B * SUB_N, HIDDEN, HIDDEN, torch.cuda.current_stream().cuda_stream,
+        ), 20,
+    )
+    del hw_out
+    # yardstick only: one cuBLAS bf16 product of A with the scaled operands
+    # (bf16 out, f32 accumulation), without the prologue and the epilogue
+    scaled = (s[:, :, None] * x["xw"]).to(torch.bfloat16)
+    lib1 = cuda_ms(lambda: torch.matmul(a, scaled), 10)
+    scaled = (s[:, :, None] * torch.matmul(x["h"], x["w_t"])).to(torch.bfloat16)
+    lib2 = cuda_ms(lambda: torch.matmul(a, scaled), 10)
+    del scaled
+    n, b, c = SUB_N, SUB_B, HIDDEN
+    # the product's work on this run's data: A is sparse, so the least work
+    # counts its nonzero entries; the kernels (as the TPU's) do the dense
+    # product, whose bound is kept beside it
+    nnz = int((a != 0).sum())
+    agg_ops = 2 * nnz * b * c
+    dense_ops = 2 * n * n * b * c
+    tr_ops = 2 * b * n * HIDDEN * c
+    bytes1 = n * n * 2 + n * c * 4 + 2 * b * n * 4 + c * 4 + b * n * c * 4
+    bytes2 = n * n * 2 + b * n * HIDDEN * 4 + HIDDEN * c * 4 + 2 * b * n * 4 + c * 4 + b * n * c * 4
+    records = []
+    for name, src_line, ms, plain, lib, err, nbytes, f32_ops in (
+        ("masked_gcn_layer", "ops/pallas_gcn.py:76", ms1, plain1, lib1, err1, bytes1, 0),
+        ("masked_gcn_layer_batched", "ops/pallas_gcn.py:104", ms2, plain2, lib2, err2, bytes2,
+         tr_ops),
+    ):
+        # the tensor cores and the float32 units can work at once: the
+        # larger of the two types' times
+        times = {
+            "operations": max(agg_ops / BF16_OPS_PER_S, f32_ops / F32_OPS_PER_S),
+            "bytes": nbytes / HBM_BYTES_PER_S,
+        }
+        dense_bound = max(dense_ops / BF16_OPS_PER_S, f32_ops / F32_OPS_PER_S, times["bytes"])
+        bound_by = max(times, key=times.get)
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"{PKG}/ops/csrc/masked_gcn_layer.cu",
+            "replaces": f"bikg_graph_explainability_public_tpu/{src_line}",
+            "launches": None,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": times[bound_by] * 1e3,
+            "bound_by": bound_by,
+            "library_ms": lib,
+            "library_note": "torch.matmul(A, bf16 scaled operands) alone: "
+            "no prologue, no epilogue",
+            "dense_bound_ms": dense_bound * 1e3,
+        })
+        log(
+            f"kernel {name} timing at N={n} B={b} C={c} (A: {nnz} nonzeros): ms={ms:.4f} "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={times[bound_by] * 1e3:.4f} "
+            f"({bound_by}) dense-product bound_ms={dense_bound * 1e3:.4f} "
+            f"dense bf16 TFLOP/s={dense_ops / ms / 1e9:.1f}"
+        )
+    log(f"kernel 2.2's float32 transform alone: {transform_ms:.4f} ms "
+        f"({tr_ops / transform_ms / 1e9:.1f} TFLOP/s)")
+    del x
+
+    cases = [  # (N, E, B, C, C_in, bias, relu)
+        (1000, 8000, 1, 16, 16, False, False),
+        (300, 2400, 7, 16, 128, True, True),
+        (130, 1000, 3, 128, 128, False, False),
+        (2040, 16000, 5, 128, 16, True, False),
+    ]
+    for i, (cn, ce, cb, cc, ci, cbias, crelu) in enumerate(cases):
+        x = _dense_case(dev, cn, ce, cb, cc, ci, seed=40 + i)
+        e1, e2 = check_dense_case(x, cbias, crelu, f"dense edge{i}")
+        records[0]["max_abs_err"] = max(records[0]["max_abs_err"], e1)
+        records[1]["max_abs_err"] = max(records[1]["max_abs_err"], e2)
+    return records
 
 
 def _check_against_cpu(ex_gpu, ex_cpu, label):
@@ -302,7 +637,11 @@ def _check_against_cpu(ex_gpu, ex_cpu, label):
     return float(np.abs(ex_gpu.mean - ex_cpu.mean).max())
 
 
-def phase_node_path(dev, config) -> None:
+def phase_explanations(dev, config, problem: str) -> None:
+    """The 36-node fixture (Shapley and community mode) and GCN-128x2 on
+    the 20k / 160k graph (4 queries), each checked against the same run on
+    the CPU (the first query of the 20k graph).  Edge problems name every
+    edge and query edges; node problems name nodes and query nodes."""
     import numpy as np
     import torch
     from bikg_graph_explainability_public_tpu_torch.explain.explainer import Explainer
@@ -310,9 +649,13 @@ def phase_node_path(dev, config) -> None:
     from bikg_graph_explainability_public_tpu_torch.models.checkpoint import load_params
     from bikg_graph_explainability_public_tpu_torch.models.gnn import GCNNodeModel
 
+    path = problem.split("_")[0] + " path"
     data = np.load(os.path.join(ROOT, "test_data", "toy_graph_36n.npz"))
     feat, ei = data["feat"], data["edge_index"]
-    names = [str(x) for x in data["names"]]
+    if problem == "edge_prediction":
+        names = [str(i) for i in range(ei.shape[1])]
+    else:
+        names = [str(x) for x in data["names"]]
     ckpt = os.path.join(ROOT, "test_data", "gcn_homo_36n_own.npz")
     # four communities over the names, drawn as tests/fixtures.py does
     perm = np.random.default_rng(1).permutation(len(names))
@@ -321,31 +664,33 @@ def phase_node_path(dev, config) -> None:
     community = dict(pathways=pathways, pathway_names=pathway_names)
     for label, kw in (("shapley", {}), ("community", community)):
         runs = {}
-        for d in (dev, torch.device("cpu")):
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
             model = Model(GCNNodeModel(N_FEATS), load_params(ckpt), device=d)
             t0 = time.perf_counter()
-            ex = Explainer(feat, ei, model, config, names, device=d, **kw)
-            runs[d.type] = ex._explain("10", times=1)
-            if d.type == "cuda":
+            ex = Explainer(feat, ei, model, config, names, problem=problem, device=d, **kw)
+            runs[where] = ex._explain("10", times=1)
+            if where == "card":
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-        diff = _check_against_cpu(runs["cuda"], runs["cpu"], f"36n {label}")
-        log(f"node path 36n fixture {label}: {len(runs['cuda'].names)} elements, "
+        diff = _check_against_cpu(runs["card"], runs["cpu"], f"36n {problem} {label}")
+        log(f"{path} 36n fixture {label}: {len(runs['card'].names)} elements, "
             f"wall {wall:.3f} s, max |card - cpu| {diff:.3e} ok")
 
     feat, ei, rng = random_graph(NODE_N, NODE_E, seed=5)
-    names = [str(i) for i in range(NODE_N)]
-    queries = [str(int(q)) for q in rng.integers(0, NODE_N, NODE_QUERIES)]
-    model, tree = gcn_128x2(seed=0, device=dev)
+    n_el = NODE_E if problem == "edge_prediction" else NODE_N
+    names = [str(i) for i in range(n_el)]
+    queries = [str(int(q)) for q in rng.integers(0, n_el, NODE_QUERIES)]
+    model, _ = gcn_128x2(seed=0, device=dev)
     for qi, q in enumerate(queries):
         t0 = time.perf_counter()
-        ex = Explainer(feat, ei, model, config, names, device=dev)._explain(q, times=1)
+        ex = Explainer(feat, ei, model, config, names, problem=problem, device=dev)
+        ex = ex._explain(q, times=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        msg = f"node path 20k/160k GCN-128x2 query {q}: {len(ex.names)} elements, wall {wall:.3f} s"
+        msg = f"{path} 20k/160k GCN-128x2 query {q}: {len(ex.names)} elements, wall {wall:.3f} s"
         if qi == 0:
             cpu_model, _ = gcn_128x2(seed=0, device="cpu")
-            ex_cpu = Explainer(feat, ei, cpu_model, config, names, device="cpu")
+            ex_cpu = Explainer(feat, ei, cpu_model, config, names, problem=problem, device="cpu")
             ex_cpu = ex_cpu._explain(q, times=1)
             msg += f", max |card - cpu| {_check_against_cpu(ex, ex_cpu, 'query ' + q):.3e}"
         elif not np.isfinite(ex.mean).all():
@@ -353,16 +698,24 @@ def phase_node_path(dev, config) -> None:
         log(msg + " ok")
 
 
-def profile_forwards(engine, masks, wall_s: float) -> None:
-    """Device time by operation over one pass of the graph path's forwards
+def profile_forwards(run, wall_s: float, label: str) -> None:
+    """Device time by operation over one more pass of ``run()``
     (``torch.profiler``), and the device's busy share of the unprofiled
     wall time ``wall_s`` of the same pass."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    # how long the host takes to enqueue the pass, against its wall time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    log(f"{label}: the host returns after {enqueue_s * 1e3:.1f} ms of a "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms pass")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.query_outputs(masks, None, "graph_prediction", chunk_size=BIG_B)
+        run()
         torch.cuda.synchronize()
     # device-side events only: the host ops that launched them carry the
     # same time again
@@ -376,17 +729,36 @@ def profile_forwards(engine, masks, wall_s: float) -> None:
     )
     busy_ms = sum(r[0] for r in rows)
     if not rows:
-        log("graph path profile: the profiler recorded no device time")
+        log(f"{label} profile: the profiler recorded no device time")
         return
-    log(f"graph path profile: device busy {busy_ms:.1f} ms of {wall_s * 1e3:.1f} ms wall "
+    log(f"{label} profile: device busy {busy_ms:.1f} ms of {wall_s * 1e3:.1f} ms wall "
         f"(busy share {busy_ms / (wall_s * 1e3):.3f}); top operations by device time:")
     for ms, count, name in rows[:12]:
         short = name if len(name) <= 100 else f"{name[:45]} ... {name[-50:]}"
         log(f"  {ms:10.3f} ms  {count:6d} calls  {short}")
+    host = sorted(
+        (
+            (e.self_cpu_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0
+        ),
+        reverse=True,
+    )
+    log(f"{label} profile: top host operations by self CPU time:")
+    for ms, count, name in host[:6]:
+        log(f"  {ms:10.3f} ms  {count:6d} calls  {name[:100]}")
+
+
+def expect_counts(counts: dict, expected: dict, label: str) -> None:
+    """Every kernel launched exactly as ``expected`` says (0 if unnamed)."""
+    want = {name: expected.get(name, 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"{label}: kernel launches {counts}, expected {want}")
+    log(f"{label}: kernel launches {counts} as expected")
 
 
 def phase_graph_path(dev, config, record: dict) -> int:
-    """Returns the kernel's launch count during the explanation; ``record``
+    """Returns kernel 2.3's launch count during the explanation; ``record``
     holds the kernel's timings at this shape from :func:`phase_kernel`."""
     import numpy as np
     import torch
@@ -403,22 +775,18 @@ def phase_graph_path(dev, config, record: dict) -> int:
     expected = (n_masks // BIG_B) * (len(model.model_def.conv) - 1)
 
     torch.cuda.reset_peak_memory_stats(dev)
-    spmm_cuda.KERNEL.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     explainer = Explainer(feat, ei, model, cfg, names, problem="graph_prediction", device=dev)
     ex = explainer._explain(None, times=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = spmm_cuda.KERNEL.launches
-    if launches != expected:
-        raise AssertionError(
-            f"graph path launched the kernel {launches} times, expected {expected}"
-        )
+    expect_counts(read_counts(), {"gather_sum_static": expected}, "graph path")
     if not np.isfinite(ex.mean).all() or ex.mean.shape != (BIG_N,):
         raise AssertionError("graph path: scores are not finite or of the wrong shape")
     log(f"graph path 100k/1M GCN-128x2: {n_masks} masks in chunks of {BIG_B}, "
-        f"wall {wall:.3f} s, kernel launches {launches} (expected {expected}), "
-        f"peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ok")
+        f"wall {wall:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ok")
     log(f"graph path kernel at this shape (phase 3): {record['ms']:.4f} ms per call, "
         f"plain {record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, torch.sparse.mm {record['library_ms']:.4f} ms")
@@ -433,15 +801,19 @@ def phase_graph_path(dev, config, record: dict) -> int:
     setup_s = time.perf_counter() - t0
     gen = torch.Generator(device=dev).manual_seed(3)
     all_masks = torch.rand((n_masks, graph.n_pad), generator=gen, device=dev) < 0.5
+
+    def run():
+        return engine.query_outputs(all_masks, None, "graph_prediction", chunk_size=BIG_B)
+
     t0 = time.perf_counter()
-    engine.query_outputs(all_masks, None, "graph_prediction", chunk_size=BIG_B)
+    run()
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
     log(f"graph path breakdown: engine set-up (graph upload, CSR, neighbour table, "
         f"layer-1 features) {setup_s:.3f} s; {n_masks} forwards {fwd_s:.3f} s; "
         f"rest of the explanation (mask sampling, transfer, surrogate fit) "
         f"{wall - setup_s - fwd_s:.3f} s")
-    profile_forwards(engine, all_masks, fwd_s)
+    profile_forwards(run, fwd_s, "graph path")
     del all_masks
 
     # one chunk through the engine, then the same engine with the plain version
@@ -459,7 +831,152 @@ def phase_graph_path(dev, config, record: dict) -> int:
         )
     log(f"graph path one chunk, kernel vs plain route: max abs diff "
         f"{(got - want).abs().max().item():.3e} (rtol 1e-5, atol 1e-6) ok")
-    return launches
+    return expected
+
+
+def phase_ell_edge_forward(dev) -> int:
+    """The unrestricted ELL edge forward on the 100k / 1M graph: 1000
+    device-generated edge masks (70 % kept, as bench.py draws them) in
+    chunks of 50, query row 17.  Returns kernel 2.4's launch count."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.graph import from_arrays
+    from bikg_graph_explainability_public_tpu_torch.models.fast_gcn import FastBatchedGCN
+    from bikg_graph_explainability_public_tpu_torch.ops import spmm, spmm_cuda
+
+    feat, ei, _ = random_graph(BIG_N, BIG_E, seed=0)
+    model, _ = gcn_128x2(seed=0, device=dev)
+    n_masks = 1000
+    expected = (n_masks // BIG_B) * (len(model.model_def.conv) - 1)
+    t0 = time.perf_counter()
+    graph = from_arrays(feat, ei, device=dev)
+    engine = FastBatchedGCN(model.model_def, graph, restrict=False, device=dev)
+    engine.table.deg  # the host-side prefix check, once per table
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(4)
+    all_masks = torch.rand((n_masks, graph.e_pad), generator=gen, device=dev) > 0.3
+    all_masks[:, graph.num_edges:] = False
+
+    def run():
+        return engine.query_outputs(all_masks, EDGE_QUERY, "edge_prediction", chunk_size=BIG_B)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    expect_counts(read_counts(), {"batched_gather_sum": expected}, "ELL edge forward")
+    if out.shape != (n_masks,) or not torch.isfinite(out).all():
+        raise AssertionError("ELL edge forward: outputs are not finite or of the wrong shape")
+    log(f"ELL edge forward 100k/1M GCN-128x2: engine set-up (graph upload, neighbour "
+        f"table, layer-1 features) {setup_s:.3f} s; {n_masks} edge-mask forwards in "
+        f"chunks of {BIG_B} {fwd_s:.3f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ok")
+    profile_forwards(run, fwd_s, "ELL edge forward")
+
+    # one chunk through the engine, then the same engine with the plain version
+    masks = all_masks[:BIG_B]
+    got = engine.query_outputs(masks, EDGE_QUERY, "edge_prediction", chunk_size=BIG_B)
+    spmm.batched_gather_sum = (
+        lambda table, ew, feats, b, w_slot=None:
+        spmm_cuda.batched_gather_sum_plain(table, feats, b, w_slot)
+    )
+    try:
+        want = engine.query_outputs(masks, EDGE_QUERY, "edge_prediction", chunk_size=BIG_B)
+    finally:
+        spmm.batched_gather_sum = spmm_cuda.batched_gather_sum
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+        raise AssertionError(
+            "ELL edge chunk: kernel route and plain route differ by "
+            f"{(got - want).abs().max().item():.3e}"
+        )
+    log(f"ELL edge forward one chunk, kernel vs plain route: max abs diff "
+        f"{(got - want).abs().max().item():.3e} (rtol 1e-5, atol 1e-6) ok")
+    return expected
+
+
+def phase_dense_fused(dev):
+    """``backend="pallas"`` against ``"xla"`` on the bench's 2048 / 16384
+    graph, ``graph_prediction``, 1000 masks in chunks of 250.  Returns the
+    launch counts of kernels 2.1 and 2.2."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.graph import from_arrays
+    from bikg_graph_explainability_public_tpu_torch.models import fast_gcn
+    from bikg_graph_explainability_public_tpu_torch.ops import gcn_layer_cuda as g
+
+    feat, ei, _ = random_graph(SUB_N, SUB_E, seed=2)
+    model, _ = gcn_128x2(seed=0, device=dev)
+    graph = from_arrays(feat, ei, device=dev)
+    fused = fast_gcn.FastBatchedGCN(model.model_def, graph, backend="pallas", restrict=False, device=dev)
+    plain = fast_gcn.FastBatchedGCN(model.model_def, graph, backend="xla", restrict=False, device=dev)
+    if fused.mode != "dense":
+        raise AssertionError(f"the {SUB_N}-node graph runs the {fused.mode} tier")
+    n_masks = 1000
+    chunks = n_masks // SUB_B
+    gen = torch.Generator(device=dev).manual_seed(5)
+    all_masks = torch.rand((n_masks, graph.n_pad), generator=gen, device=dev) > 0.3
+    all_masks[:, graph.num_nodes:] = False
+
+    def run(engine):
+        return engine.query_outputs(all_masks, None, "graph_prediction", chunk_size=SUB_B)
+
+    run(fused)  # the first call builds the bf16 adjacency
+    run(plain)
+    reset_counts()
+    got = run(fused)
+    counts = read_counts()
+    expect_counts(
+        counts,
+        {"masked_gcn_layer": chunks, "masked_gcn_layer_batched": chunks,
+         "masked_gcn_layer_batched.transform": chunks},
+        "fused dense forward",
+    )
+    want = run(plain)
+    # a pass is tens of ms: the best of three, the two engines in turns
+    walls = {"pallas": [], "xla": []}
+    for _ in range(3):
+        for name, engine in (("pallas", fused), ("xla", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(engine)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    fused_s, xla_s = min(walls["pallas"]), min(walls["xla"])
+    if got.shape != (n_masks,) or not torch.isfinite(got).all():
+        raise AssertionError("fused dense forward: outputs are not finite or of the wrong shape")
+    # the bf16 operands against float32 (tests/test_pallas_gcn.py:20)
+    diff = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=5e-2, atol=6e-2):
+        raise AssertionError(f"fused dense forward: backend pallas and xla differ by {diff:.3e}")
+    corr = torch.corrcoef(torch.stack([got, want]))[0, 1].item()
+    log(f"fused dense forward 2048/16384 GCN-128x2 graph_prediction: {n_masks} masks in "
+        f"chunks of {SUB_B}, best of 3: backend pallas {fused_s:.4f} s, xla {xla_s:.4f} s "
+        f"(all passes: pallas {[round(w, 4) for w in walls['pallas']]}, "
+        f"xla {[round(w, 4) for w in walls['xla']]}); "
+        f"max |pallas - xla| {diff:.3e} (rtol 5e-2, atol 6e-2), correlation {corr:.6f} ok")
+    profile_forwards(lambda: run(fused), fused_s, "fused dense forward")
+
+    # one chunk through the kernels, then through their plain versions
+    masks = all_masks[:SUB_B]
+    got = fused.query_outputs(masks, None, "graph_prediction", chunk_size=SUB_B)
+    fast_gcn.masked_gcn_layer = g.masked_gcn_layer_plain
+    fast_gcn.masked_gcn_layer_batched = g.masked_gcn_layer_batched_plain
+    try:
+        want = fused.query_outputs(masks, None, "graph_prediction", chunk_size=SUB_B)
+    finally:
+        fast_gcn.masked_gcn_layer = g.masked_gcn_layer
+        fast_gcn.masked_gcn_layer_batched = g.masked_gcn_layer_batched
+    # pooled outputs: float32 order, plus the rare one-ulp bf16 roundings of
+    # 2.2's operand averaged over 2048 nodes
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+        raise AssertionError(
+            "fused dense chunk: kernel route and plain route differ by "
+            f"{(got - want).abs().max().item():.3e}"
+        )
+    log(f"fused dense forward one chunk, kernel vs plain route: max abs diff "
+        f"{(got - want).abs().max().item():.3e} (rtol 1e-4, atol 1e-5) ok")
+    return counts["masked_gcn_layer"], counts["masked_gcn_layer_batched"]
 
 
 def main() -> int:
@@ -480,17 +997,26 @@ def main() -> int:
         config = json.load(f)
 
     t_start = time.perf_counter()
-    phase_header()
+    card = phase_header()
     phase_build()
-    record = phase_kernel(dev)
-    from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda
+    rec_23, table = phase_kernel(dev)
+    rec_24 = phase_kernel_weighted(dev, table)
+    del table
+    rec_21, rec_22 = phase_kernel_dense(dev)
+    log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
-    spmm_cuda.KERNEL.launches = 0
-    phase_node_path(dev, config)
-    log(f"node path kernel launches: {spmm_cuda.KERNEL.launches} (dense tier: none expected)")
-    record["launches"] = phase_graph_path(dev, config, record)
+    reset_counts()
+    phase_explanations(dev, config, "node_prediction")
+    expect_counts(read_counts(), {}, "node path (dense tier, query plans)")
+    reset_counts()
+    phase_explanations(dev, config, "edge_prediction")
+    expect_counts(read_counts(), {}, "edge path (dense tier, edge query plans)")
+    rec_23["launches"] = phase_graph_path(dev, config, rec_23)
+    rec_24["launches"] = phase_ell_edge_forward(dev)
+    rec_21["launches"], rec_22["launches"] = phase_dense_fused(dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [record]}), flush=True)
+    log(card)
+    print(json.dumps({"kernels": [rec_23, rec_24, rec_21, rec_22]}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -124,8 +124,14 @@ def test_private_step_returns_the_arrays_behind_run(toy):
 def test_explainer_checks_its_inputs(toy):
     feat, ei, names, cfg = toy
     tm = Model(GCNNodeModel(84), load_params(CKPT), device="cpu")
+    # heterogeneous communities are not ported
+    with pytest.raises(AssertionError):
+        texplainer.Explainer(
+            feat, ei, tm, cfg, names, pathways={"gene": [["1"]]}, pathway_names={"gene": ["a"]},
+            device="cpu",
+        )
     with pytest.raises(NotImplementedError):
-        texplainer.Explainer(feat, ei, tm, cfg, names, problem="edge_prediction", device="cpu")
+        tpathways.Pathways({"gene": [["1"]]})
     with pytest.raises(AssertionError):
         texplainer.Explainer(feat, ei, tm, cfg, names, problem="node", device="cpu")
     with pytest.raises(AssertionError, match="not present"):
@@ -135,6 +141,75 @@ def test_explainer_checks_its_inputs(toy):
         ex = texplainer.Explainer(feat, ei, tm, params, names, device="cpu")
         with pytest.raises(error):
             ex.run("10")
+
+
+@pytest.mark.parametrize("times", [1, 2])
+@pytest.mark.parametrize("mode", ["shapley", "community"])
+def test_fixture_edge_run_matches_jax(toy, mode, times):
+    """``edge_prediction`` on the fixture: one name per edge, the query
+    edge's receiver seeds the subgraph, masks are e_pad wide."""
+    feat, ei, _, cfg = toy
+    edge_names = [str(i) for i in range(ei.shape[1])]
+    kw = {}
+    if mode == "community":
+        pathways, pathway_names = make_communities(len(edge_names), k=6, seed=2)
+        kw = dict(pathways=pathways, pathway_names=pathway_names)
+    jm = px.Model(px.GCNNodeModel(84), jload_params(CKPT))
+    tm = Model(GCNNodeModel(84), load_params(CKPT), device="cpu")
+    jcv, jpw = px.Explainer(feat, ei, jm, cfg, edge_names, problem="edge_prediction", **kw).run(
+        "10", times=times
+    )
+    tex = texplainer.Explainer(
+        feat, ei, tm, cfg, edge_names, problem="edge_prediction", device="cpu", **kw
+    )
+    tcv, tpw = tex.run("10", times=times)
+    _assert_frames(tcv, jcv)
+    assert set(tcv.index) <= set(edge_names) and len(tcv) < len(edge_names)
+    if mode == "shapley":
+        assert tpw is None and jpw is None
+    else:
+        _assert_frames(tpw, jpw)
+
+
+def test_edge_problem_needs_one_name_per_edge(toy):
+    feat, ei, names, cfg = toy
+    tm = Model(GCNNodeModel(84), load_params(CKPT), device="cpu")
+    jm = px.Model(px.GCNNodeModel(84), jload_params(CKPT))
+    with pytest.raises(AssertionError, match="one name per EDGE") as got:
+        texplainer.Explainer(feat, ei, tm, cfg, names, problem="edge_prediction", device="cpu").run("10")
+    with pytest.raises(AssertionError, match="one name per EDGE") as want:
+        px.Explainer(feat, ei, jm, cfg, names, problem="edge_prediction").run("10")
+    assert str(got.value) == str(want.value)
+
+
+class SumNeighborFeature(torch.nn.Module):
+    """Out[v] = sum over in-edges of w_e * x[snd, 0] (``tests/test_planted_rank.py``):
+    the query's prediction is the masked sum of its neighbours' first
+    feature, so the edge from the neighbour with the planted large feature
+    is the ground-truth top attribution."""
+
+    num_hops = 1
+
+    def forward(self, x, senders, receivers, edge_weight):
+        msg = edge_weight * x[senders, 0]  # [..., E]
+        out = msg.new_zeros(msg.shape[:-1] + (x.shape[0],))
+        return out.index_add_(out.dim() - 1, receivers, msg)[..., None]
+
+
+def test_planted_edge_ranks_first():
+    """Star graph, spokes 1..7 -> hub 0; node 4 carries the signal."""
+    n = 8
+    feat = np.full((n, 4), 0.1, np.float32)
+    feat[4, 0] = 10.0
+    ei = np.stack([np.arange(1, n), np.zeros(n - 1, np.int64)])
+    edge_names = [f"e{i}" for i in range(ei.shape[1])]
+    planted_edge = f"e{int(np.nonzero(ei[0] == 4)[0][0])}"
+    cfg = {"seed": 0, "interpret_samples": 100, "epochs": 100, "lr": 0.1, "l1_lambda": 1e-5}
+    model = Model(SumNeighborFeature(), device="cpu")
+    df, _ = texplainer.Explainer(
+        feat, ei, model, cfg, edge_names, problem="edge_prediction", device="cpu"
+    ).run(planted_edge, times=2)
+    assert df.index.tolist()[0] == planted_edge, df
 
 
 @pytest.mark.parametrize("width,valid,rtol", [(8, 8, 1e-5), (64, 40, 1e-5), (1024, 1000, 2e-3)])

@@ -1,6 +1,7 @@
-"""PyTorch port: the package stands alone.  It imports neither ``jax`` nor
-the JAX package, names neither in any of its files, and its entry points
-take the CUDA card unless the caller asks for the CPU."""
+"""PyTorch port: the package stands alone.  Neither it nor ``chip_smoke.py``
+imports ``jax`` or the JAX package, no file of the package names either,
+and the entry points take the CUDA card unless the caller asks for the
+CPU."""
 
 from __future__ import annotations
 
@@ -54,11 +55,17 @@ def test_importing_every_module_loads_no_jax():
     assert proc.stdout.startswith("ok")
 
 
+IMPORTS_JAX = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|bikg_graph_explainability_public_tpu)\b", re.M
+)
+NAMES_JAX_PACKAGE = re.compile(r"bikg_graph_explainability_public_tpu(?!_torch)\b")
+#: any import of jax in any form, including ``importlib.import_module("jax")``
+#: and ``__import__``
+LOADS_JAX = re.compile(r"""(import_module|__import__)\(\s*['"](jax|jaxlib)\b""")
+
+
 def test_no_file_names_jax_or_the_jax_package():
-    imports = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|bikg_graph_explainability_public_tpu)\b", re.M
-    )
-    names_jax_package = re.compile(r"bikg_graph_explainability_public_tpu(?!_torch)\b")
+    imports, names_jax_package = IMPORTS_JAX, NAMES_JAX_PACKAGE
     offenders = []
     for path in _package_files():
         with open(path) as f:
@@ -66,6 +73,32 @@ def test_no_file_names_jax_or_the_jax_package():
         if imports.search(text) or names_jax_package.search(text):
             offenders.append(os.path.relpath(path, ROOT))
     assert not offenders
+
+
+def test_chip_smoke_imports_no_jax():
+    """The card's machine has neither jax nor the JAX package: the script
+    must not import them, in any form, at any depth of its functions."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        text = f.read()
+    # it may name the JAX package's files (the kernels it replaces), but
+    # imports nothing of it
+    assert not IMPORTS_JAX.search(text)
+    assert not LOADS_JAX.search(text)
+    # and running its imports pulls in neither
+    code = (
+        "import sys, importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'bikg_graph_explainability_public_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0 and proc.stdout.startswith("ok"), proc.stdout + proc.stderr
 
 
 def test_entry_points_default_to_cuda():

@@ -186,6 +186,7 @@ def test_scatter_or_matches_jax():
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_ell_coeffs_and_shared_aggregate_match_jax(seed):
+    """Node-mask coefficients; edge-mask ones in the next test."""
     feat, ei, _ = make_graph(n=50, f=4, e=260, seed=seed)
     jg = px.from_arrays(feat, ei)
     tg = tgraph.from_arrays(feat, ei, device="cpu")
@@ -200,6 +201,19 @@ def test_ell_coeffs_and_shared_aggregate_match_jax(seed):
     want = jell.ell_aggregate_shared(jc, jnp.asarray(xw)[jt.nbr])
     got = tell.ell_aggregate_shared(tc, _t(xw)[tt.nbr])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ell_edge_coeffs_match_jax(seed):
+    feat, ei, _ = make_graph(n=50, f=4, e=260, seed=seed)
+    jg = px.from_arrays(feat, ei)
+    tg = tgraph.from_arrays(feat, ei, device="cpu")
+    jt, tt = jell.build_neighbor_table(jg), tell.build_neighbor_table(tg)
+    m = (np.random.default_rng(seed).random((4, jg.e_pad)) > 0.4).astype(np.float32)
+    jc, js = jax.vmap(lambda row: jell.gcn_coeffs_from_edge_mask(jt, row))(jnp.asarray(m))
+    tc, ts = tell.gcn_coeffs_from_edge_mask(tt, _t(m))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), **TOL)
 
 
 @pytest.mark.parametrize("problem,query", [("node_prediction", 10), ("graph_prediction", None)])
@@ -218,10 +232,31 @@ def test_perturbed_query_outputs_match_jax(toy, fixture_models, problem, query, 
     np.testing.assert_allclose(got, want, **TOL)
 
 
-def test_model_adapter_device_and_hops(fixture_models):
+@pytest.mark.parametrize("query", [10, 25])
+@pytest.mark.parametrize("fast", [True, False])
+def test_perturbed_edge_outputs_match_jax(toy, fixture_models, fast, query):
+    """Edge masks [M, E_pad]: the engine's edge plan (``fast``) or the
+    generic route's ``ew = base * mask``, against the JAX adapter's."""
+    _, jg, tg = toy
+    jm, tm = fixture_models
+    jm_path = px.Model(jm.model_def, jm.params, fast=fast)
+    tm_path = Model(tm.model_def, device="cpu", fast=fast)
+    masks = np.random.default_rng(query).random((24, jg.e_pad)) > 0.3
+    masks[:, jg.num_edges:] = False
+    want = np.asarray(
+        jm_path.perturbed_query_outputs(jg, jnp.asarray(masks), "edge_prediction", query, chunk_size=8)
+    )
+    got = tm_path.perturbed_query_outputs(tg, masks, "edge_prediction", query, chunk_size=8).numpy()
+    assert got.shape == (24,)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_model_adapter_device_and_hops(toy, fixture_models):
+    _, _, tg = toy
     _, tm = fixture_models
     assert tm.device == torch.device("cpu")
     assert tm.get_hops() == 1
     assert all(p.device.type == "cpu" for p in tm.model_def.parameters())
-    with pytest.raises(NotImplementedError):
-        tm.perturbed_query_outputs(None, np.zeros((1, 8), bool), "edge_prediction", 0)
+    # edge problems are ported: all edges kept is the unperturbed forward
+    out = tm.perturbed_query_outputs(tg, np.ones((1, tg.e_pad), bool), "edge_prediction", 10)
+    np.testing.assert_allclose(out.numpy(), tm.infer(tg)[10].numpy(), **TOL)

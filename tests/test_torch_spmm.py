@@ -1,4 +1,4 @@
-"""PyTorch port: the static separable ELL gather-sum.
+"""PyTorch port: the static separable ELL gather-sum (kernel 2.3).
 
 On the CPU the wrapper runs the kernel's plain PyTorch version; that is what
 is held here against the JAX package's v7 Pallas kernel in interpret mode
@@ -172,7 +172,7 @@ def test_wrapper_checks_inputs():
 
 def test_cpu_tensors_never_build_or_launch_the_kernel():
     _, tt = _tables(8, seed=3)
-    before = spmm_cuda.KERNEL.launches
+    before = spmm_cuda.GATHER_SUM_STATIC.launches
     spmm_cuda.gather_sum_static(tt, torch.ones((N, 8)), 2, post_scale=torch.ones((N, 2)))
-    assert spmm_cuda.KERNEL.launches == before
-    assert spmm_cuda.KERNEL._lib is None
+    assert spmm_cuda.GATHER_SUM_STATIC.launches == before
+    assert not spmm_cuda.GATHER_SUM_STATIC.library.built
