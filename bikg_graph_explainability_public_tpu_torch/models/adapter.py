@@ -26,7 +26,10 @@ class Model:
     the CUDA card).  :class:`.gnn.GCNNodeModel` forwards run on the fused
     engine (:class:`.fast_gcn.FastBatchedGCN`) when ``fast``; other
     homogeneous modules with a ``(x, senders, receivers, edge_weight)``
-    forward run the generic batched forward.
+    forward run the generic batched forward, the head on the query row only
+    where they expose ``backbone`` / ``head``
+    (:class:`.gnn.ConvStackNodeModel`: the GAT, GATv2, SAGE, GraphConv and
+    GIN stacks, which have no fast engine in the JAX package either).
     """
 
     def __init__(

@@ -1,21 +1,29 @@
 """GNN layers with PyG-exact numerics, for masked batched execution.
 
 Each layer's ``forward`` is the JAX package's ``apply(params, ...)`` with
-the parameters held by the module.  ``edge_weight`` carries both graph
-validity and perturbation masks (0 = edge absent), and may have leading
-batch dimensions (``[..., E]``, with features ``[..., N, F]``): a batch of
-perturbed graphs is one call.
+the parameters held by the module, under the same names (the JAX tree
+paths, which are PyG's state-dict keys: ``lin_src.weight``, ``att_src``,
+...).  ``edge_weight`` carries both graph validity and perturbation masks
+(0 = edge absent), and may have leading batch dimensions (``[..., E]``, with
+features ``[N, F]`` or ``[..., N, F]``): a batch of perturbed graphs is one
+call.  Aggregation is plain PyTorch (``index_add_`` / ``scatter_reduce_``),
+as the JAX layers use segment operations and no Pallas kernel.
+
+Initialisation draws from ``generator`` (a ``torch.Generator``; ``None``
+means torch's default one); it does not reproduce JAX's draw, since
+weights are carried across with :func:`.checkpoint.params_from_numpy`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.norm import gcn_norm_weights
+from ..ops.segment import segment_max, segment_softmax, segment_sum
 from ..ops.spmm import weighted_gather_sum
 
 
@@ -29,21 +37,32 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(x)
 
 
+def _uniform(shape, limit: float, generator: Optional[torch.Generator]) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape).uniform_(-limit, limit, generator=generator))
+
+
+def _glorot(shape, generator: Optional[torch.Generator]) -> nn.Parameter:
+    """Glorot-uniform over the last two axes, as the JAX package's ``glorot``."""
+    fan_in, fan_out = shape[-1], shape[-2] if len(shape) > 1 else shape[-1]
+    return _uniform(shape, math.sqrt(6.0 / (fan_in + fan_out)), generator)
+
+
 class Linear(nn.Module):
     """Dense layer, torch layout: weight [out, in], y = x W^T + b."""
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        bias: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
         limit = math.sqrt(1.0 / in_features)
-        self.weight = nn.Parameter(
-            torch.empty(out_features, in_features).uniform_(-limit, limit)
-        )
-        self.bias = (
-            nn.Parameter(torch.empty(out_features).uniform_(-limit, limit))
-            if bias else None
-        )
+        self.weight = _uniform((out_features, in_features), limit, generator)
+        self.bias = _uniform((out_features,), limit, generator) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x @ W.T + b."""
@@ -67,6 +86,7 @@ class GCNConv(nn.Module):
         improved: bool = False,
         add_self_loops: bool = True,
         normalize: bool = True,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.in_features = in_features
@@ -74,10 +94,7 @@ class GCNConv(nn.Module):
         self.improved = improved
         self.add_self_loops = add_self_loops
         self.normalize = normalize
-        limit = math.sqrt(6.0 / (in_features + out_features))  # glorot
-        self.weight = nn.Parameter(
-            torch.empty(out_features, in_features).uniform_(-limit, limit)
-        )
+        self.weight = _glorot((out_features, in_features), generator)
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(
@@ -113,3 +130,244 @@ class GCNConv(nn.Module):
             else:
                 out = out + self.bias
         return out
+
+
+def _segment(fn, data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``fn`` of :mod:`..ops.segment` (which reduces the leading axis) over
+    axis -2 of ``data [..., E, X]``: the edge axis under any batch axes."""
+    return fn(data.movedim(-2, 0), ids, n).movedim(0, -2)
+
+
+def _attention(
+    logits: torch.Tensor,        # [..., E, H] attention logits of the edges
+    logit_self: Optional[torch.Tensor],  # [..., N, H] of the unit self-loops
+    xs: torch.Tensor,            # [..., N, H, C] messages of the senders
+    senders: torch.Tensor,
+    receivers: torch.Tensor,
+    edge_weight: torch.Tensor,   # [..., E]; 0 = edge absent
+) -> torch.Tensor:               # [..., N, H, C]
+    """Softmax over each receiver's present in-edges, then the weighted sum
+    of the senders' messages.  Masked edges leave the softmax (the
+    static-shape equivalent of deleting them); with ``logit_self`` a unit
+    self-loop per node enters it and is never masked (PyG's homogeneous
+    default, which the reference's mega-graph keeps for masked nodes)."""
+    n, (h, c) = xs.shape[-3], xs.shape[-2:]
+    present = (edge_weight > 0)[..., None]
+    logits = torch.where(present, logits, -math.inf)
+    if logit_self is None:
+        alpha = _segment(segment_softmax, logits, receivers, n) * present
+        msg = (alpha[..., None] * xs[..., senders, :, :]).flatten(-2)
+        return _segment(segment_sum, msg, receivers, n).unflatten(-1, (h, c))
+    seg_max = _segment(segment_max, logits, receivers, n)
+    m = torch.maximum(torch.where(torch.isfinite(seg_max), seg_max, -math.inf), logit_self)
+    ex = torch.where(present, torch.exp(logits - m[..., receivers, :]), 0.0)
+    ex_self = torch.exp(logit_self - m)
+    denom = _segment(segment_sum, ex, receivers, n) + ex_self
+    denom = torch.where(denom == 0.0, 1.0, denom)
+    msg = (ex[..., None] * xs[..., senders, :, :]).flatten(-2)
+    out = _segment(segment_sum, msg, receivers, n).unflatten(-1, (h, c)) + ex_self[..., None] * xs
+    return out / denom[..., None]
+
+
+class _AttentionConv(nn.Module):
+    """What GATConv and GATv2Conv share: heads, the concat/mean of heads and
+    the output bias."""
+
+    def __init__(self, in_features, out_features, heads, concat, negative_slope,
+                 add_self_loops, bias):
+        super().__init__()
+        self.in_src, self.in_dst = in_features
+        self.out_features = out_features
+        self.heads = heads
+        self.concat = concat
+        self.negative_slope = negative_slope
+        self.add_self_loops = add_self_loops
+        width = heads * out_features if concat else out_features
+        self.bias = nn.Parameter(torch.zeros(width)) if bias else None
+
+    def _finish(self, out: torch.Tensor) -> torch.Tensor:
+        out = out.flatten(-2) if self.concat else out.mean(-2)
+        return out if self.bias is None else out + self.bias
+
+
+class GATConv(_AttentionConv):
+    """PyG-exact GAT convolution (bipartite ``(-1, -1)`` form): separate
+    source/target linear maps, additive attention with leaky-relu, softmax
+    over incoming edges.
+
+    Parameters: ``lin_src.weight``, ``lin_dst.weight`` [H*C, in], ``att_src``,
+    ``att_dst`` [1, H, C], ``bias`` [H*C] (concat) or [C].  A PyG
+    homogeneous checkpoint holds one shared ``lin_src``; the importer copies
+    it into both maps, as the JAX package does.
+    """
+
+    def __init__(
+        self,
+        in_features: Tuple[int, int],
+        out_features: int,
+        heads: int = 1,
+        concat: bool = True,
+        negative_slope: float = 0.2,
+        add_self_loops: bool = False,
+        bias: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__(in_features, out_features, heads, concat, negative_slope,
+                         add_self_loops, bias)
+        hc = heads * out_features
+        self.lin_src = Linear(self.in_src, hc, bias=False, generator=generator)
+        self.lin_dst = Linear(self.in_dst, hc, bias=False, generator=generator)
+        self.att_src = _glorot((1, heads, out_features), generator)
+        self.att_dst = _glorot((1, heads, out_features), generator)
+
+    def forward(self, x, senders, receivers, edge_weight) -> torch.Tensor:
+        """Masked attention convolution, [..., N, H*C] or [..., N, C]."""
+        hc = (self.heads, self.out_features)
+        xs = self.lin_src(x[..., : self.in_src]).unflatten(-1, hc)
+        xd = self.lin_dst(x[..., : self.in_dst]).unflatten(-1, hc)
+        a_src = (xs * self.att_src).sum(-1)  # [..., N, H]
+        a_dst = (xd * self.att_dst).sum(-1)
+        slope = self.negative_slope
+        logits = nn.functional.leaky_relu(a_src[..., senders, :] + a_dst[..., receivers, :], slope)
+        logit_self = (
+            nn.functional.leaky_relu(a_src + a_dst, slope) if self.add_self_loops else None
+        )
+        return self._finish(_attention(logits, logit_self, xs, senders, receivers, edge_weight))
+
+
+class GATv2Conv(_AttentionConv):
+    """PyG-exact GATv2 convolution: per edge (j -> i)
+    ``e_ij = att . leaky_relu(lin_l(x_j) + lin_r(x_i))``, softmax over
+    incoming edges, ``out_i = sum_j alpha_ij lin_l(x_j)``.
+
+    Parameters: ``lin_l``, ``lin_r`` (Linear(in, H*C), with bias when
+    ``bias``), ``att`` [1, H, C], ``bias``.  With ``share_weights`` the
+    forward reads ``lin_l`` for both sides; ``lin_r`` stays only to keep
+    PyG's key layout.
+    """
+
+    def __init__(
+        self,
+        in_features: Tuple[int, int],
+        out_features: int,
+        heads: int = 1,
+        concat: bool = True,
+        negative_slope: float = 0.2,
+        add_self_loops: bool = True,
+        bias: bool = True,
+        share_weights: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__(in_features, out_features, heads, concat, negative_slope,
+                         add_self_loops, bias)
+        self.share_weights = share_weights
+        hc = heads * out_features
+        self.lin_l = Linear(self.in_src, hc, bias=bias, generator=generator)
+        self.lin_r = Linear(self.in_dst, hc, bias=bias, generator=generator)
+        if share_weights:
+            self.lin_r.load_state_dict(self.lin_l.state_dict())
+        self.att = _glorot((1, heads, out_features), generator)
+
+    def forward(self, x, senders, receivers, edge_weight) -> torch.Tensor:
+        """Masked GATv2 attention convolution."""
+        hc = (self.heads, self.out_features)
+        xl = self.lin_l(x[..., : self.in_src]).unflatten(-1, hc)
+        lin_r = self.lin_l if self.share_weights else self.lin_r
+        xr = lin_r(x[..., : self.in_dst]).unflatten(-1, hc)
+        slope = self.negative_slope
+        pre = xl[..., senders, :, :] + xr[..., receivers, :, :]  # [..., E, H, C]
+        logits = (nn.functional.leaky_relu(pre, slope) * self.att).sum(-1)
+        logit_self = (
+            (nn.functional.leaky_relu(xl + xr, slope) * self.att).sum(-1)
+            if self.add_self_loops else None
+        )
+        return self._finish(_attention(logits, logit_self, xl, senders, receivers, edge_weight))
+
+
+def _mean_weights(edge_weight, receivers, n):
+    """Per-receiver sum of the edge weights, ``[..., N, 1]``, 1 where 0."""
+    den = _segment(segment_sum, edge_weight[..., None], receivers, n)
+    return torch.where(den > 0, den, 1.0)
+
+
+class SAGEConv(nn.Module):
+    """PyG-exact GraphSAGE convolution (mean aggregation):
+    ``out = lin_l(mean_w{x_u}) + lin_r(x)``.
+
+    Parameters: ``lin_l`` (aggregated neighbours, with bias), ``lin_r``
+    (root, no bias).  The mean is weighted by ``edge_weight``: masked edges
+    leave both numerator and denominator.
+    """
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.lin_l = Linear(in_features, out_features, bias=bias, generator=generator)
+        self.lin_r = Linear(in_features, out_features, bias=False, generator=generator)
+
+    def forward(self, x, senders, receivers, edge_weight) -> torch.Tensor:
+        """Mean-aggregate neighbours + root transform."""
+        n = x.shape[-2]
+        xin = x[..., : self.in_features]
+        ew = edge_weight.to(xin.dtype)
+        agg = weighted_gather_sum(ew, xin, senders, receivers, n) / _mean_weights(ew, receivers, n)
+        out = agg @ self.lin_l.weight.T + xin @ self.lin_r.weight.T
+        return out if self.lin_l.bias is None else out + self.lin_l.bias
+
+
+class GraphConv(nn.Module):
+    """PyG-exact GraphConv (weighted-sum aggregation):
+    ``out = lin_rel(sum_w{x_u}) + lin_root(x)``.
+
+    Parameters: ``lin_rel`` (aggregated neighbours, with bias), ``lin_root``
+    (root, no bias).  Masked edges contribute nothing to the sum.
+    """
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.lin_rel = Linear(in_features, out_features, bias=bias, generator=generator)
+        self.lin_root = Linear(in_features, out_features, bias=False, generator=generator)
+
+    def forward(self, x, senders, receivers, edge_weight) -> torch.Tensor:
+        """Weighted-sum-aggregate neighbours + root transform."""
+        xin = x[..., : self.in_features]
+        agg = weighted_gather_sum(edge_weight.to(xin.dtype), xin, senders, receivers, x.shape[-2])
+        out = agg @ self.lin_rel.weight.T + xin @ self.lin_root.weight.T
+        return out if self.lin_rel.bias is None else out + self.lin_rel.bias
+
+
+class GINConv(nn.Module):
+    """PyG-exact GIN convolution: ``out = mlp((1 + eps) x + sum_w{x_u})``.
+
+    The MLP is Linear/ReLU alternating (``mlp_channels`` hidden widths, then
+    ``out_features``): parameters ``nn.{i}.weight``, ``nn.{i}.bias`` (the
+    JAX tree's list index; PyG's ``nn.Sequential`` counts the ReLUs too, and
+    the importer maps) and the scalar ``eps``.
+    """
+
+    def __init__(self, in_features: int, out_features: int, mlp_channels: Tuple[int, ...] = (),
+                 eps: float = 0.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        dims = (in_features,) + tuple(mlp_channels) + (out_features,)
+        self.nn = nn.ModuleList(
+            Linear(a, b, generator=generator) for a, b in zip(dims[:-1], dims[1:])
+        )
+        self.eps = nn.Parameter(torch.tensor(float(eps)))
+
+    def forward(self, x, senders, receivers, edge_weight) -> torch.Tensor:
+        """(1 + eps) * x + sum of neighbours, through the MLP."""
+        xin = x[..., : self.in_features]
+        agg = weighted_gather_sum(edge_weight.to(xin.dtype), xin, senders, receivers, x.shape[-2])
+        h = (1.0 + self.eps) * xin + agg
+        for i, lin in enumerate(self.nn):
+            h = lin(h)
+            if i != len(self.nn) - 1:
+                h = relu(h)
+        return h

@@ -8,7 +8,9 @@
 //
 // Replaces ops/spmm_pallas.py::gather_sum_static of the JAX package: the
 // v7 schedule, spmm_ell_pallas(sched="v7") -> _spmm_v7 -> _kernel_v7
-// (spmm_pallas.py:1074) in static mode with has_scale.
+// (spmm_pallas.py:1074) in static mode with has_scale.  The same kernel
+// without the scale is exported a second time as ell_valid_sum (end of
+// file) for the v6 and v5 schedules.
 //
 // Bound: memory.  There is no arithmetic to speak of (one add per gathered
 // element, one multiply per output element).  A gather design moves
@@ -166,4 +168,16 @@ extern "C" int gather_sum_static(const void* feats, int dtype, const void* nbr,
     err = launch<__nv_bfloat16, 1>(feats, nbr, deg, post_scale, out, n, k, w, f, s);
   }
   return static_cast<int>(err);
+}
+
+// The valid-prefix sum without an output scale: the unscaled instantiation
+// above, exported under its own name so that its launches count apart from
+// kernel 2.3's.  Replaces the JAX package's spmm_ell_pallas with sched="v6"
+// (-> _kernel_v6, spmm_pallas.py:867) and sched="v5" (-> _kernel_v5 :549):
+// both sum the valid slots of each row and differ from v7 only in how the
+// TPU schedules its row DMAs.
+extern "C" int ell_valid_sum(const void* feats, int dtype, const void* nbr,
+                             const void* deg, void* out, int64_t n, int64_t k,
+                             int64_t w, int64_t f, int vec, void* stream) {
+  return gather_sum_static(feats, dtype, nbr, deg, nullptr, out, n, k, w, f, vec, stream);
 }

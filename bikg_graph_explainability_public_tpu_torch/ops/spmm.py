@@ -1,7 +1,9 @@
 """Sparse aggregation entries (the torch-scatter/torch-sparse role).
 
 * :func:`weighted_gather_sum` — per-edge scalar weights over ``[..., N, F]``
-  features (the generic GCNConv layer path): a gather plus ``index_add``.
+  features (the generic layer path): a gather plus ``index_add``, or, given
+  the graph's neighbour table and ``[N, F]`` features, kernel 2.4 at
+  ``b = 1`` plus the self-loop term.
 * :func:`weighted_gather_sum_batched` — per-edge, per-sample weights over
   batch-contiguous ``[N, B*F]`` features (the edge-mask layers >= 2),
   through :func:`.spmm_cuda.batched_gather_sum` (kernel 2.4).
@@ -11,8 +13,8 @@
   table's static validity only, through :func:`.spmm_cuda.gather_sum_static`
   (kernel 2.3).
 
-Both run the hand-written CUDA kernel on the card and its plain version on
-the CPU.
+The table routes run the hand-written CUDA kernel on the card and its
+plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -30,12 +32,25 @@ def weighted_gather_sum(
     senders: torch.Tensor,
     receivers: torch.Tensor,
     num_nodes: int,
+    *,
+    table=None,
 ) -> torch.Tensor:
     """out[..., v, :] = sum over edges e with receivers[e]==v of
     edge_weight[..., e] * feats[..., senders[e], :].
 
     Masked/padded edges must carry weight 0 (they then contribute nothing,
-    wherever their indices point)."""
+    wherever their indices point).  With the graph's ``table``
+    (:class:`.ell.NeighborTable`, whose ``eid`` index ``edge_weight``) and
+    ``[N, F]`` features, the aggregation runs through
+    :func:`.spmm_cuda.batched_gather_sum` at ``b = 1`` (kernel 2.4) and the
+    self-loop edges, which the table leaves out, are added as a separate
+    ``[E]`` pass, as the JAX entry's Pallas branch does; the output is then
+    float32.  There is no width crossover: a table means the kernel."""
+    if table is not None and feats.dim() == 2 and edge_weight.dim() == 1:
+        out = batched_gather_sum(table, edge_weight[:, None], feats, 1)
+        loop_w = torch.where(senders == receivers, edge_weight, edge_weight.new_zeros(()))
+        self_w = loop_w.new_zeros(num_nodes).index_add_(0, receivers, loop_w)
+        return out + self_w[:, None] * feats
     msg = edge_weight[..., None] * feats[..., senders, :]
     lead = msg.shape[:-2]
     out = msg.new_zeros(lead + (num_nodes, msg.shape[-1]))

@@ -1,14 +1,23 @@
-"""The ELL gather-sums: hand-written CUDA kernels for Hopper and their plain
-PyTorch versions.
+"""The ELL gather-sums: hand-written CUDA kernels for Hopper, their plain
+PyTorch versions and :func:`spmm_ell`, the entry that routes by schedule.
 
-* :func:`gather_sum_static` (``csrc/gather_sum_static.cu``): static
-  separable weights with a fused output scale, the node-mask layers >= 2.
-* :func:`batched_gather_sum` (``csrc/batched_gather_sum.cu``): per-slot,
-  per-sample weights ``w_slot [N, K, B]``, the edge-mask layers >= 2.
+* :func:`gather_sum_static` (``csrc/gather_sum_static.cu``, kernel 2.3):
+  static separable weights with a fused output scale, the node-mask layers
+  >= 2.
+* :func:`batched_gather_sum` (``csrc/batched_gather_sum.cu``, kernel 2.4):
+  per-slot, per-sample weights ``w_slot [N, K, B]``, the edge-mask layers
+  >= 2.
+* :func:`ell_valid_sum` (``ell_valid_sum`` of ``csrc/gather_sum_static.cu``,
+  kernels 2.5 and 2.8): the valid-prefix sum, 2.3 without the scale.
+* :func:`spmm_ell_weighted` (``csrc/spmm_ell_weighted.cu``, kernels 2.6 and
+  2.7): slot weights, static ``[N, K]`` (multiplied) or ``[N, K, wb]`` with
+  ``wb`` in ``{1, B}`` (selected: a slot of weight 0 adds nothing).
 
 Each wrapper launches its kernel for tensors on the card and runs the plain
 version for tensors on the CPU; there is no other route.  The kernels are
-built at first CUDA use (:mod:`.cuda_build`).
+built at first CUDA use (:mod:`.cuda_build`).  The TPU's four schedules of
+``spmm_ell_pallas`` compute two functions, so :func:`spmm_ell` sends them to
+two kernels and counts each schedule's launches apart.
 """
 
 from __future__ import annotations
@@ -23,11 +32,26 @@ from .cuda_build import Kernel
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # (feats, dtype, nbr, deg, post_scale | w_slot, out, n, k, w, f, vec, stream)
 _ARGS = [_p, _i, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _p]
+# (feats, dtype, nbr, deg, out, n, k, w, f, vec, stream)
+_VALID_ARGS = [_p, _i, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _p]
+# (feats, dtype, nbr, deg, w_slot, out, n, k, w, f, wb, select, vec, stream)
+_WEIGHTED_ARGS = [_p, _i, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _i64, _i, _i, _p]
 
 #: kernel 2.3, the static separable gather-sum
 GATHER_SUM_STATIC = Kernel("gather_sum_static.cu", "gather_sum_static", _ARGS)
 #: kernel 2.4, the weighted gather-sum
 BATCHED_GATHER_SUM = Kernel("batched_gather_sum.cu", "batched_gather_sum", _ARGS)
+#: kernels 2.5 (``sched="v6"``) and 2.8 (``"v5"``): one CUDA function,
+#: counted per schedule
+ELL_VALID_SUM = {
+    s: Kernel("gather_sum_static.cu", "ell_valid_sum", _VALID_ARGS) for s in ("v6", "v5")
+}
+#: kernels 2.6 (``sched="v3"``) and 2.7 (``"fused"``): one CUDA function,
+#: counted per schedule
+SPMM_ELL_WEIGHTED = {
+    s: Kernel("spmm_ell_weighted.cu", "spmm_ell_weighted", _WEIGHTED_ARGS)
+    for s in ("v3", "fused")
+}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,12 +80,14 @@ def _check_f32(name: str, t: Optional[torch.Tensor], shape, feats: torch.Tensor)
         raise ValueError(f"{name} must be {list(shape)} float32 on the features' device")
 
 
-def _launch(kernel: Kernel, table, feats: torch.Tensor, b: int, extra: Optional[torch.Tensor]):
-    """The launch both wrappers share; ``extra`` is post_scale or w_slot."""
+def _launch(kernel: Kernel, table, feats: torch.Tensor, b: int, weights=(), scalars=()):
+    """The launch every wrapper shares: ``weights`` are the kernel's tensor
+    arguments after ``deg`` (None passes a null pointer), ``scalars`` its
+    integer arguments after ``f``."""
     if feats.device.type != "cuda":
         raise ValueError(f"unsupported device {feats.device}")
     deg = table.deg
-    tensors = [feats, table.nbr, deg] + ([extra] if extra is not None else [])
+    tensors = [feats, table.nbr, deg] + [t for t in weights if t is not None]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{kernel.symbol} needs contiguous tensors")
     n, k = table.nbr.shape
@@ -75,9 +101,9 @@ def _launch(kernel: Kernel, table, feats: torch.Tensor, b: int, extra: Optional[
         vec = 1
     with torch.cuda.device(feats.device):
         kernel.launch(
-            feats.data_ptr(), _DTYPE_CODE[feats.dtype], table.nbr.data_ptr(),
-            deg.data_ptr(), None if extra is None else extra.data_ptr(),
-            out.data_ptr(), n, k, w, f, vec,
+            feats.data_ptr(), _DTYPE_CODE[feats.dtype], table.nbr.data_ptr(), deg.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in weights),
+            out.data_ptr(), n, k, w, f, *scalars, vec,
             torch.cuda.current_stream(feats.device).cuda_stream,
         )
     return out
@@ -116,7 +142,23 @@ def gather_sum_static(
     _check_f32("post_scale", post_scale, (table.nbr.shape[0], b), feats)
     if feats.device.type == "cpu":
         return gather_sum_static_plain(table, feats, b, post_scale)
-    return _launch(GATHER_SUM_STATIC, table, feats, b, post_scale)
+    return _launch(GATHER_SUM_STATIC, table, feats, b, (post_scale,))
+
+
+def ell_valid_sum(table, feats: torch.Tensor, b: int, *, sched: str = "v6") -> torch.Tensor:
+    """``out[v] = sum_{k < deg[v]} feats[nbr[v, k]]``: :func:`gather_sum_static`
+    without the output scale, float32 ``[N, B*F]``.
+
+    On a CUDA tensor this launches kernel 2.5 (``sched="v6"``) or 2.8
+    (``"v5"``), one CUDA function counted per schedule (or raises); on a
+    CPU tensor it runs :func:`gather_sum_static_plain`.
+    """
+    _check(table, feats, b)
+    if sched not in ELL_VALID_SUM:
+        raise ValueError(f"ell_valid_sum serves sched 'v6' and 'v5', not {sched!r}")
+    if feats.device.type == "cpu":
+        return gather_sum_static_plain(table, feats, b)
+    return _launch(ELL_VALID_SUM[sched], table, feats, b)
 
 
 def slot_weights(table, edge_weight: torch.Tensor) -> torch.Tensor:
@@ -156,7 +198,10 @@ def batched_gather_sum(
     coefficient tensors).  Without it they are built from ``edge_weight``
     ``[E, B]`` as :func:`slot_weights` does.  On a CUDA tensor this launches
     kernel 2.4 (or raises); on a CPU tensor it runs
-    :func:`batched_gather_sum_plain`.
+    :func:`batched_gather_sum_plain`.  Weights shared by all samples,
+    ``w_slot [N, K, 1]`` (or ``edge_weight [E, 1]``) with ``b > 1``, go to
+    :func:`spmm_ell_weighted` (kernel 2.6), as the JAX entry falls back to
+    its v3 schedule for them; a slot of weight 0 then adds nothing.
     """
     _check(table, feats, b)
     if w_slot is None:
@@ -164,7 +209,117 @@ def batched_gather_sum(
             raise ValueError("pass edge_weight or w_slot")
         w_slot = slot_weights(table, edge_weight.float())
     n, k = table.nbr.shape
+    if b > 1 and w_slot.dim() == 3 and w_slot.shape[2] == 1:
+        return spmm_ell_weighted(table, w_slot, feats, b)
     _check_f32("w_slot", w_slot, (n, k, b), feats)
     if feats.device.type == "cpu":
         return batched_gather_sum_plain(table, feats, b, w_slot)
-    return _launch(BATCHED_GATHER_SUM, table, feats, b, w_slot)
+    return _launch(BATCHED_GATHER_SUM, table, feats, b, (w_slot,))
+
+
+def spmm_ell_weighted_plain(table, w_slot: torch.Tensor, feats: torch.Tensor, b: int) -> torch.Tensor:
+    """Kernels 2.6 and 2.7's function in plain PyTorch: a loop over the K
+    slots with a select on ``k < deg``.  Static weights ``[N, K]`` multiply
+    (each valid slot adds ``w * x``); ``[N, K, wb]`` weights select (a valid
+    slot adds ``w * x`` where ``w != 0`` and nothing where ``w == 0``)."""
+    n, k = table.nbr.shape
+    w = feats.shape[1]
+    f = w // b
+    deg = table.deg
+    static = w_slot.dim() == 2
+    w3 = w_slot[:, :, None] if static else w_slot
+    out = torch.zeros((n, b, f), dtype=torch.float32, device=feats.device)
+    zero = out.new_zeros(())
+    for j in range(k):
+        wj = w3[:, j, :, None]  # [N, wb, 1]
+        take = (deg > j)[:, None, None] if static else (deg > j)[:, None, None] & (wj != 0)
+        out += torch.where(take, wj * feats[table.nbr[:, j]].float().view(n, b, f), zero)
+    return out.view(n, w)
+
+
+def spmm_ell_weighted(
+    table, w_slot: torch.Tensor, feats: torch.Tensor, b: int, *, sched: str = "v3"
+) -> torch.Tensor:
+    """``out[v, s*F:(s+1)*F] = sum_{k < deg[v]} w[v, k, s] *
+    feats[nbr[v, k], s*F:(s+1)*F]`` over a prefix-valid
+    :class:`.ell.NeighborTable`; float32 ``[N, B*F]``.
+
+    ``w_slot`` float32: static ``[N, K]`` (one weight per slot, multiplied),
+    or ``[N, K, wb]`` with ``wb`` 1 (broadcast over the samples) or ``b``
+    (per sample), selected: a slot of weight 0 adds nothing, even where its
+    source row holds NaN.  On a CUDA tensor this launches kernel 2.6
+    (``sched="v3"``) or 2.7 (``"fused"``), one CUDA function counted per
+    schedule (or raises); on a CPU tensor it runs
+    :func:`spmm_ell_weighted_plain`.
+    """
+    _check(table, feats, b)
+    if sched not in SPMM_ELL_WEIGHTED:
+        raise ValueError(f"spmm_ell_weighted serves sched 'v3' and 'fused', not {sched!r}")
+    n, k = table.nbr.shape
+    wb = 1 if w_slot.dim() == 2 else w_slot.shape[-1]
+    if wb not in (1, b):
+        raise ValueError(f"w_slot has {wb} weights per slot; expected 1 or b={b}")
+    _check_f32("w_slot", w_slot, (n, k) if w_slot.dim() == 2 else (n, k, wb), feats)
+    if feats.device.type == "cpu":
+        return spmm_ell_weighted_plain(table, w_slot, feats, b)
+    select = int(w_slot.dim() == 3)
+    return _launch(SPMM_ELL_WEIGHTED[sched], table, feats, b, (w_slot,), (wb, select))
+
+
+#: the schedules of the JAX package's ``spmm_ell_pallas``
+SCHEDS = ("v3", "fused", "v5", "v6", "v7")
+
+
+def spmm_ell(
+    table,
+    w_slot: torch.Tensor,
+    feats: torch.Tensor,
+    b: int = 1,
+    *,
+    sched: str = "v3",
+    post_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The ELL SpMM entry, ``out[v] = sum_k w[v, k] * feats[nbr[v, k]]``:
+    the JAX package's ``spmm_ell_pallas`` with the table in place of its
+    DMA plan.  Float32 ``[N, B*F]``.
+
+    ``w_slot`` is static ``[N, K]`` or weighted ``[N, K, wb]``; the routes:
+
+    * ``"v7"``: static weights to kernel 2.3 (:func:`gather_sum_static`, with
+      ``post_scale``), weighted ones to kernel 2.4
+      (:func:`batched_gather_sum`), ``wb == b`` only;
+    * ``"v6"``, ``"v5"``: static weights to kernels 2.5 and 2.8
+      (:func:`ell_valid_sum`); weighted ones are refused;
+    * ``"v3"``, ``"fused"``: both modes to kernels 2.6 and 2.7
+      (:func:`spmm_ell_weighted`), ``wb`` 1 or ``b``.
+
+    For v5, v6 and v7 static weights must be the table's validity (checked
+    on the host); the kernels take the valid-prefix length ``deg`` instead.
+    ``post_scale [N, B]`` is fused by v7 only and refused elsewhere (the JAX
+    entry ignores it there).  On CUDA tensors each route launches its
+    kernel or raises; on CPU tensors it runs the kernel's plain version.
+    """
+    if sched not in SCHEDS:
+        raise ValueError(f"unknown sched {sched!r}; one of {SCHEDS}")
+    if post_scale is not None and sched != "v7":
+        raise ValueError(f"sched={sched!r} takes no post_scale (only 'v7' fuses it)")
+    if w_slot.dim() == 2:
+        if sched in ("v3", "fused"):
+            return spmm_ell_weighted(table, w_slot, feats, b, sched=sched)
+        _check_f32("w_slot", w_slot, tuple(table.valid.shape), table.valid)
+        if w_slot is not table.valid and not torch.equal(w_slot, table.valid):
+            raise ValueError(f"sched={sched!r} takes the table's validity as static weights")
+        if sched == "v7":
+            return gather_sum_static(table, feats, b, post_scale)
+        return ell_valid_sum(table, feats, b, sched=sched)
+    if w_slot.dim() != 3:
+        raise ValueError(f"w_slot must be [N, K] or [N, K, wb], got {tuple(w_slot.shape)}")
+    if sched in ("v5", "v6"):
+        raise ValueError(f"sched={sched!r} serves the static mode only")
+    if sched == "v7":
+        if w_slot.shape[2] != b:
+            raise ValueError(
+                f"sched='v7' weighted mode needs per-sample weights (wb={w_slot.shape[2]} != b={b})"
+            )
+        return batched_gather_sum(table, None, feats, b, w_slot=w_slot)
+    return spmm_ell_weighted(table, w_slot, feats, b, sched=sched)

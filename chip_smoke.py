@@ -16,6 +16,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (100k nodes / 1M edges, B=50, F=128, float32) and in the edge cases;
    2.1 and 2.2 (the fused dense layers) at the bench's subgraph shape
    (2048 nodes / 16384 edges, B=250, C=128) and in the edge cases;
+   then the ELL SpMM entry ``spmm_ell`` and its schedule routes (the
+   ladder: v7 on 2.3 and 2.4, v6 and v5 on 2.5 and 2.8, v3 and fused on 2.6
+   and 2.7, with static, broadcast and per-sample weights), the broadcast
+   route of ``batched_gather_sum`` and the table route of
+   ``weighted_gather_sum``, each route counted, held against its plain
+   version and timed at the production shape, then held in the edge cases;
 4. the node path: ``Explainer._explain`` (the arrays behind
    ``Explainer.run``) on ``node_prediction`` for the repo's trained 36-node
    fixture (Shapley and community mode) and for GCN-128x2 on a 20k-node /
@@ -33,7 +39,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel 2.4's launches, timed, profiled and compared as in 6;
 8. the fused dense forward: ``FastBatchedGCN(backend="pallas")`` against
    ``backend="xla"`` on the 2048 / 16384 graph, 1000 masks, counting the
-   launches of kernels 2.1 and 2.2, and one chunk against the plain route.
+   launches of kernels 2.1 and 2.2, and one chunk against the plain route;
+9. the model families: the repo's trained GAT fixture explains the node,
+   edge and graph problems, GAT-128x2 on the 20k / 160k graph 4 node and 4
+   edge queries, GATv2, SAGE, GraphConv and GIN one node query each, all
+   through the generic batched forward (no hand kernel), checked against
+   the CPU.
 
 Every path runs with all launch counts set to 0 just before it and read
 just after.  The line before the last is ``{"kernels": [...]}``; the last
@@ -179,6 +190,10 @@ def all_kernels():
         "masked_gcn_layer": gcn_layer_cuda.MASKED_GCN_LAYER,
         "masked_gcn_layer_batched": gcn_layer_cuda.MASKED_GCN_LAYER_BATCHED,
         "masked_gcn_layer_batched.transform": gcn_layer_cuda.TRANSFORM,
+        "ell_valid_sum.v6": spmm_cuda.ELL_VALID_SUM["v6"],
+        "ell_valid_sum.v5": spmm_cuda.ELL_VALID_SUM["v5"],
+        "spmm_ell_weighted.v3": spmm_cuda.SPMM_ELL_WEIGHTED["v3"],
+        "spmm_ell_weighted.fused": spmm_cuda.SPMM_ELL_WEIGHTED["fused"],
     }
 
 
@@ -256,7 +271,7 @@ def hold_gather_sum(table, got, want, label) -> float:
 
 def phase_kernel(dev):
     """Kernel 2.3: production shape, then the edge cases; returns the
-    kernel's record and the production table."""
+    kernel's record, the production graph and its table."""
     import numpy as np
     import torch
     from bikg_graph_explainability_public_tpu_torch.graph import from_arrays
@@ -271,7 +286,6 @@ def phase_kernel(dev):
     table = build_neighbor_table(graph)
     deg = table.deg
     log(f"host: 100k/1M graph + neighbour table in {time.perf_counter() - t0:.2f} s (K={table.k})")
-    del graph
     err, feats, ps = check_kernel_case(
         table, BIG_B, HIDDEN, torch.float32, True, 0, "production"
     )
@@ -347,7 +361,7 @@ def phase_kernel(dev):
         "bound_by": bound_by,
         "library_ms": library_ms,
         "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
-    }, table
+    }, graph, table
 
 
 def check_weighted_case(table, b, f, dtype, seed, label):
@@ -979,6 +993,345 @@ def phase_dense_fused(dev):
     return counts["masked_gcn_layer"], counts["masked_gcn_layer_batched"]
 
 
+LADDER_ROWS = {  # kernel row -> (counter, schedule, TPU kernel it replaces)
+    "2.5": ("ell_valid_sum.v6", "v6", "ops/spmm_pallas.py:867"),
+    "2.6": ("spmm_ell_weighted.v3", "v3", "ops/spmm_pallas.py:288"),
+    "2.7": ("spmm_ell_weighted.fused", "fused", "ops/spmm_pallas.py:436"),
+    "2.8": ("ell_valid_sum.v5", "v5", "ops/spmm_pallas.py:549"),
+}
+
+
+def ladder_inputs(table, b, f, dtype, seed):
+    """Features with NaN in the source rows that no valid slot names and in
+    one named row ``r0``; static [N, K], broadcast [N, K, 1] and per-sample
+    [N, K, B] slot weights, a third of the broadcast and per-sample ones
+    exactly 0 and every slot that names ``r0`` weighing 0 in those two;
+    and a post-scale [N, B]."""
+    import torch
+
+    dev = table.nbr.device
+    n, k = table.nbr.shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    valid = table.valid
+    feats = torch.randn((n, b * f), generator=gen, device=dev).to(dtype)
+    used = torch.zeros(n, dtype=torch.bool, device=dev)
+    used[table.nbr[valid > 0]] = True
+    feats[~used] = float("nan")
+    r0 = int(table.nbr[valid > 0][0])
+    feats[r0] = float("nan")
+    names_r0 = (table.nbr == r0) & (valid > 0)
+
+    def masked(shape):
+        w = torch.randn(shape, generator=gen, device=dev)
+        w[torch.rand(shape, generator=gen, device=dev) < 1 / 3] = 0.0
+        w[names_r0] = 0.0
+        return (w * valid[:, :, None]).contiguous()
+
+    weights = {
+        "static": torch.randn((n, k), generator=gen, device=dev) * valid,
+        "broadcast": masked((n, k, 1)),
+        "per_sample": masked((n, k, b)),
+    }
+    ps = torch.randn((n, b), generator=gen, device=dev)
+    return feats, weights, ps, names_r0.any(dim=1)
+
+
+def hold_route(got, want, table, label, select: bool) -> float:
+    """A route's output against its plain version's: the same NaN entries
+    (NaN reaches a row only through the named NaN row), exact zeros on rows
+    of degree 0, equal elsewhere up to float32 summation order; the select
+    routes (a slot of weight 0 adds nothing) come out finite.  Returns the
+    max abs error over the finite entries."""
+    import torch
+
+    torch.cuda.synchronize()
+    nan = torch.isnan(got)
+    if not torch.equal(nan, torch.isnan(want)):
+        raise AssertionError(f"{label}: NaN entries differ from the plain version's")
+    if select and nan.any():
+        raise AssertionError(f"{label}: a slot of weight 0 let NaN into the sum")
+    if torch.isinf(got).any():
+        raise AssertionError(f"{label}: infinite output")
+    deg0 = table.deg == 0
+    if deg0.any() and got[deg0].abs().max().item() != 0.0:
+        raise AssertionError(f"{label}: rows of degree 0 are not exact zeros")
+    g, w = got[~nan], want[~nan]
+    if not torch.allclose(g, w, rtol=1e-5, atol=1e-5):
+        raise AssertionError(
+            f"{label}: kernel disagrees with plain, max abs err {(g - w).abs().max().item():.3e}"
+        )
+    return (g - w).abs().max().item() if g.numel() else 0.0
+
+
+def ladder_routes(table, feats, weights, ps, b, graph=None):
+    """Every route of the raw entry and its two callers, as (label, counter,
+    select, call, plain): the call goes through the public wrappers; the
+    plain computes the same function with the plain versions."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.ops import spmm, spmm_cuda as sc
+
+    valid = table.valid
+    routes = [
+        ("v7 static post_scale (2.3)", "gather_sum_static", False,
+         lambda: sc.spmm_ell(table, valid, feats, b, sched="v7", post_scale=ps),
+         lambda: sc.gather_sum_static_plain(table, feats, b, ps)),
+        ("v7 per_sample (2.4)", "batched_gather_sum", False,
+         lambda: sc.spmm_ell(table, weights["per_sample"], feats, b, sched="v7"),
+         lambda: sc.batched_gather_sum_plain(table, feats, b, weights["per_sample"])),
+    ]
+    for sched in ("v6", "v5"):
+        routes.append((f"{sched} static (2.{5 if sched == 'v6' else 8})", f"ell_valid_sum.{sched}", False,
+                       lambda s=sched: sc.spmm_ell(table, valid, feats, b, sched=s),
+                       lambda: sc.gather_sum_static_plain(table, feats, b)))
+    for sched in ("v3", "fused"):
+        for mode, w in weights.items():
+            routes.append((f"{sched} {mode} (2.{6 if sched == 'v3' else 7})", f"spmm_ell_weighted.{sched}",
+                           mode != "static",
+                           lambda s=sched, w=w: sc.spmm_ell(table, w, feats, b, sched=s),
+                           lambda w=w: sc.spmm_ell_weighted_plain(table, w, feats, b)))
+    if b > 1:
+        routes.append(("batched_gather_sum broadcast (2.6)", "spmm_ell_weighted.v3", True,
+                       lambda: sc.batched_gather_sum(table, None, feats, b, w_slot=weights["broadcast"]),
+                       lambda: sc.spmm_ell_weighted_plain(table, weights["broadcast"], feats, b)))
+    if graph is not None:
+        # scalar per-edge weights over [N, F]: 2.4 at b = 1 plus the self-loop term
+        x1 = feats[:, : feats.shape[1] // b].contiguous()
+        gen = torch.Generator(device=feats.device).manual_seed(9)
+        ew = torch.rand(graph.e_pad, generator=gen, device=feats.device) * graph.edge_mask
+        snd, rcv = graph.senders, graph.receivers
+
+        def plain_wgs():
+            out = sc.batched_gather_sum_plain(table, x1, 1, sc.slot_weights(table, ew[:, None]))
+            loop = torch.where(snd == rcv, ew, 0.0)
+            return out + x1.new_zeros(x1.shape[0]).index_add_(0, rcv, loop)[:, None] * x1
+
+        routes.append(("weighted_gather_sum table b=1 (2.4)", "batched_gather_sum", False,
+                       lambda: spmm.weighted_gather_sum(ew, x1, snd, rcv, x1.shape[0], table=table),
+                       plain_wgs))
+    return routes
+
+
+def ladder_bound(table, weights, b, f, itemsize, mode) -> tuple:
+    """(bound_ms, bound_by) of one route on this run's data: each source row
+    that a slot of non-zero weight names read once, the valid slots' indices
+    (of the slots read) and weights read once, deg once, the output written
+    once; one add (valid sums) or a multiply and an add (weighted) per
+    gathered element that is summed."""
+    import torch
+
+    n, k = table.nbr.shape
+    w = b * f
+    valid = table.valid > 0
+    sum_deg = int(valid.sum())
+    if mode in ("valid", "static"):
+        read = valid
+        wbytes = 0 if mode == "valid" else sum_deg * 4
+        ops = sum_deg * w * (1 if mode == "valid" else 2)
+    else:
+        nz = weights[mode] != 0  # [N, K, wb]
+        read = valid & nz.any(dim=2)
+        wbytes = sum_deg * nz.shape[2] * 4
+        ops = 2 * int(nz.sum()) * (w if nz.shape[2] == 1 else f)
+    rows = int(torch.unique(table.nbr[read]).numel())
+    nbytes = rows * w * itemsize + int(read.sum()) * 4 + wbytes + n * 4 + n * w * 4
+    t = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / F32_OPS_PER_S}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def phase_ladder(dev, graph, table) -> list:
+    """The ELL SpMM entry ``spmm_ell`` and its callers on the production
+    table (100k / 1M, K = 32), B = 50, F = 128, float32: every route once
+    with the counts set to 0 (each held against its plain version), then
+    each timed; then every route in the edge cases.  Returns the records of
+    kernels 2.5-2.8."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
+
+    feats, weights, ps, named_r0 = ladder_inputs(table, BIG_B, HIDDEN, torch.float32, 7)
+    routes = ladder_routes(table, feats, weights, ps, BIG_B, graph)
+    reset_counts()
+    expected, errs = {}, {}
+    for label, counter, select, call, plain in routes:
+        got = call()
+        errs[label] = hold_route(got, plain(), table, f"ladder {label}", select)
+        if counter == "batched_gather_sum" and "v7" in label and not torch.isnan(got[named_r0]).all():
+            raise AssertionError("kernel 2.4 should keep 0 * NaN on the rows that name the NaN row")
+        expected[counter] = expected.get(counter, 0) + 1
+        log(f"ladder route {label}: max_abs_err={errs[label]:.3e} ok")
+        del got
+    counts = read_counts()
+    expect_counts(counts, expected, "ladder (spmm_ell, batched_gather_sum, weighted_gather_sum)")
+
+    # timings: the routes, the plain version of each function once, and
+    # torch.sparse.mm where one call computes the same function
+    ms = {label: cuda_ms(call, 20) for label, _, _, call, _ in routes}
+    plain = {
+        "valid": cuda_ms(lambda: sc.gather_sum_static_plain(table, feats, BIG_B), 3),
+        "broadcast": cuda_ms(lambda: sc.spmm_ell_weighted_plain(table, weights["broadcast"], feats, BIG_B), 3),
+    }
+    nbr, valid = table.nbr, table.valid > 0
+    rows = torch.arange(BIG_N, device=dev)[:, None].expand_as(nbr)[valid]
+
+    def csr(values):
+        return torch.sparse_coo_tensor(
+            torch.stack([rows, nbr[valid]]), values, (BIG_N, BIG_N)
+        ).coalesce().to_sparse_csr()
+
+    # the library's yardstick on finite features: cuSPARSE multiplies, so a
+    # NaN row reaches the sum through any slot
+    finite = torch.nan_to_num(feats, nan=0.0)
+    library = {}
+    for mode, values in (("valid", torch.ones(rows.numel(), device=dev)),
+                         ("static", weights["static"][valid]),
+                         ("broadcast", weights["broadcast"][..., 0][valid])):
+        adj = csr(values)
+        lib_out = torch.sparse.mm(adj, finite)
+        want = (sc.gather_sum_static_plain(table, finite, BIG_B) if mode == "valid"
+                else sc.spmm_ell_weighted_plain(table, weights[mode], finite, BIG_B))
+        if not torch.allclose(lib_out, want, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"library yardstick ({mode}) computes another function")
+        del lib_out, want
+        library[mode] = cuda_ms(lambda: torch.sparse.mm(adj, finite), 5)
+        del adj
+    del finite
+    bounds = {m: ladder_bound(table, weights, BIG_B, HIDDEN, 4, m)
+              for m in ("valid", "static", "broadcast", "per_sample")}
+    for label, _, _, _, _ in routes:
+        log(f"ladder timing {label}: ms={ms[label]:.4f}")
+    for m, (bms, by) in bounds.items():
+        extra = "".join(f"; {what} {t[m]:.4f} ms" for what, t in
+                        (("torch.sparse.mm", library), ("plain", plain)) if m in t)
+        log(f"ladder bound {m} weights: {bms:.4f} ms ({by}){extra}")
+    del feats, weights, ps
+
+    # the edge cases: every route on small tables
+    cases = [  # (b, K, F, dtype)
+        (1, 8, 128, torch.float32),
+        (1, 12, 128, torch.bfloat16),
+        (16, 8, 64, torch.bfloat16),
+        (16, 12, 64, torch.float32),
+        (16, 16, 64, torch.float32),
+        (16, 32, 64, torch.bfloat16),
+        (48, 8, 6, torch.float32),
+        (48, 12, 8, torch.bfloat16),
+        (48, 16, 8, torch.float32),
+        (48, 32, 6, torch.float32),
+    ]
+    for i, (b, k, f, dtype) in enumerate(cases):
+        t = _table(5000, 5000 * k // 2, k, seed=60 + i, device=dev, dead_rows=300, dead_srcs=200)
+        x, w, p, _ = ladder_inputs(t, b, f, dtype, 300 + i)
+        worst = 0.0
+        for label, _, select, call, plain_fn in ladder_routes(t, x, w, p, b):
+            err = hold_route(call(), plain_fn(), t, f"ladder edge{i} {label}", select)
+            errs[label] = max(errs[label], err)
+            worst = max(worst, err)
+        log(f"ladder case edge{i}: N=5000 K={k} b={b} F={f} {str(dtype)[6:]} "
+            f"deg0_rows={int((t.deg == 0).sum())} every route max_abs_err={worst:.3e} ok")
+
+    records = []
+    for row, (counter, sched, replaces) in LADDER_ROWS.items():
+        valid_sum = counter.startswith("ell_valid_sum")
+        mode = "valid" if valid_sum else "broadcast"
+        mine = [label for label, c, _, _, _ in routes if c == counter and f"({row})" in label]
+        main = mine[0] if valid_sum else next(lb for lb in mine if " broadcast " in lb and lb.startswith(sched))
+        rec = {
+            "name": f"{counter} ({row}, sched={sched!r})",
+            "route": "cuda",
+            "source": f"{PKG}/ops/csrc/{'gather_sum_static.cu' if valid_sum else 'spmm_ell_weighted.cu'}",
+            "replaces": f"bikg_graph_explainability_public_tpu/{replaces}",
+            "launches": counts[counter],
+            "max_abs_err": max(errs[lb] for lb in mine),
+            "ms": ms[main],
+            "plain_ms": plain[mode],
+            "bound_ms": bounds[mode][0],
+            "bound_by": bounds[mode][1],
+            "library_ms": library[mode],
+            "measured_route": main,
+        }
+        if not valid_sum:
+            for m in ("static", "per_sample"):
+                lb = next(lb for lb in mine if f" {m} " in lb and lb.startswith(sched))
+                rec[f"{m}_ms"] = ms[lb]
+                rec[f"{m}_bound_ms"] = bounds[m][0]
+            rec["static_library_ms"] = library["static"]
+        records.append(rec)
+    return records
+
+
+def phase_model_families(dev, config) -> None:
+    """The homogeneous model families through the generic batched forward:
+    the trained GAT fixture on the node, edge and graph problems; GAT-128x2
+    (seeded weights) on the 20k / 160k graph, 4 node and 4 edge queries;
+    GATv2, SAGE, GraphConv and GIN at conv (128, 128), one node query each.
+    The first query of each model, and every fixture run, is checked
+    against the same run on the CPU."""
+    import numpy as np
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.explain.explainer import Explainer
+    from bikg_graph_explainability_public_tpu_torch.models import gnn
+    from bikg_graph_explainability_public_tpu_torch.models.adapter import Model
+    from bikg_graph_explainability_public_tpu_torch.models.torch_import import (
+        gat_node_model_params, load_state_dict,
+    )
+
+    def explain(make, feat, ei, names, problem, element, check: bool, label: str):
+        t0 = time.perf_counter()
+        ex = Explainer(feat, ei, Model(make(), device=dev), config, names, problem=problem, device=dev)
+        ex = ex._explain(element, times=1)
+        torch.cuda.synchronize()
+        msg = f"{label}: {len(ex.names)} elements, wall {time.perf_counter() - t0:.3f} s"
+        if check:
+            cpu = Explainer(feat, ei, Model(make(), device="cpu"), config, names, problem=problem,
+                            device="cpu")._explain(element, times=1)
+            msg += f", max |card - cpu| {_check_against_cpu(ex, cpu, label):.3e}"
+        elif not np.isfinite(ex.mean).all():
+            raise AssertionError(f"{label}: non-finite scores")
+        log(msg + " ok")
+
+    sd = load_state_dict(os.path.join(ROOT, "test_data", "gat_homo_1hop_36n_own.pth.tar"))
+
+    def fixture():
+        mdef = gnn.gat_node_model(N_FEATS, conv_channels=(16,), fc_channels=(16, 16, 32))
+        mdef.load_state_dict(gat_node_model_params(sd))
+        return mdef
+
+    data = np.load(os.path.join(ROOT, "test_data", "toy_graph_36n.npz"))
+    feat, ei = data["feat"], data["edge_index"]
+    node_names = [str(x) for x in data["names"]]
+    edge_names = [str(i) for i in range(ei.shape[1])]
+    for problem, names, element in (("node_prediction", node_names, "10"),
+                                    ("edge_prediction", edge_names, "10"),
+                                    ("graph_prediction", node_names, None)):
+        explain(fixture, feat, ei, names, problem, element, True, f"GAT fixture 36n {problem}")
+
+    feat, ei, rng = random_graph(NODE_N, NODE_E, seed=5)
+    families = {
+        "GAT-128x2": lambda g: gnn.gat_node_model(
+            N_FEATS, conv_channels=(HIDDEN, HIDDEN), heads=1, fc_channels=(HIDDEN, 64), generator=g),
+        "GATv2-128x2": lambda g: gnn.gatv2_node_model(
+            N_FEATS, conv_channels=(HIDDEN, HIDDEN), fc_channels=(HIDDEN, 64), generator=g),
+        "SAGE-128x2": lambda g: gnn.sage_node_model(
+            N_FEATS, conv_channels=(HIDDEN, HIDDEN), fc_channels=(HIDDEN, 64), generator=g),
+        "GraphConv-128x2": lambda g: gnn.graph_conv_node_model(
+            N_FEATS, conv_channels=(HIDDEN, HIDDEN), fc_channels=(HIDDEN, 64), generator=g),
+        "GIN-128x2": lambda g: gnn.gin_node_model(
+            N_FEATS, conv_channels=(HIDDEN, HIDDEN), mlp_hidden=HIDDEN, fc_channels=(HIDDEN, 64),
+            generator=g),
+    }
+    for name, factory in families.items():
+        def make(factory=factory):
+            return factory(torch.Generator().manual_seed(0))
+        problems = ("node_prediction", "edge_prediction") if name == "GAT-128x2" else ("node_prediction",)
+        for problem in problems:
+            n_el = NODE_E if problem == "edge_prediction" else NODE_N
+            names = [str(i) for i in range(n_el)]
+            queries = rng.integers(0, n_el, NODE_QUERIES if name == "GAT-128x2" else 1)
+            for qi, q in enumerate(queries):
+                explain(make, feat, ei, names, problem, str(int(q)), qi == 0,
+                        f"{problem.split('_')[0]} path 20k/160k {name} query {int(q)}")
+
+
 def main() -> int:
     try:
         import torch
@@ -999,10 +1352,11 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_header()
     phase_build()
-    rec_23, table = phase_kernel(dev)
+    rec_23, graph, table = phase_kernel(dev)
     rec_24 = phase_kernel_weighted(dev, table)
-    del table
     rec_21, rec_22 = phase_kernel_dense(dev)
+    ladder = phase_ladder(dev, graph, table)
+    del graph, table
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     reset_counts()
@@ -1014,9 +1368,12 @@ def main() -> int:
     rec_23["launches"] = phase_graph_path(dev, config, rec_23)
     rec_24["launches"] = phase_ell_edge_forward(dev)
     rec_21["launches"], rec_22["launches"] = phase_dense_fused(dev)
+    reset_counts()
+    phase_model_families(dev, config)
+    expect_counts(read_counts(), {}, "model families (generic forward, segment operations)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
-    print(json.dumps({"kernels": [rec_23, rec_24, rec_21, rec_22]}), flush=True)
+    print(json.dumps({"kernels": [rec_21, rec_22, rec_23, rec_24] + ladder}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {
