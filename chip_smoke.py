@@ -9,13 +9,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. header: card name and power limit, torch and CUDA versions; TF32 off;
 2. build every hand-written CUDA kernel from the checkout's sources, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together; print each kernel's
+   registers and spills and the ``HGMMA`` (``wgmma``) count of the dense
+   layers' library (``cuobjdump -sass``, where the toolkit or Triton has
+   one);
 3. each kernel against its plain PyTorch version on the card, with its
    time, the plain version's, a library call's and the least time the card
    could take: 2.3 and 2.4 (the ELL gather-sums) at the production shape
    (100k nodes / 1M edges, B=50, F=128, float32) and in the edge cases;
-   2.1 and 2.2 (the fused dense layers) at the bench's subgraph shape
-   (2048 nodes / 16384 edges, B=250, C=128) and in the edge cases;
+   2.1 (with its operand launch) and 2.2 (the fused dense layers) at the
+   bench's subgraph shape (2048 nodes / 16384 edges, B=250, C=128), each
+   launch alone too, beside both bounds (A's nonzeros and the dense
+   product) and cuBLAS (the product alone, and 2.2 like for like), then in
+   seven edge cases (N = 37 to 4096);
    then the ELL SpMM entry ``spmm_ell`` and its schedule routes (the
    ladder: v7 on 2.3 and 2.4, v6 and v5 on 2.5 and 2.8, v3 and fused on 2.6
    and 2.7, with static, broadcast and per-sample weights), the broadcast
@@ -39,7 +45,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel 2.4's launches, timed, profiled and compared as in 6;
 8. the fused dense forward: ``FastBatchedGCN(backend="pallas")`` against
    ``backend="xla"`` on the 2048 / 16384 graph, 1000 masks, counting the
-   launches of kernels 2.1 and 2.2, and one chunk against the plain route;
+   launches of kernels 2.1 (and its operand launch) and 2.2, and one
+   chunk against the plain route;
 9. the model families: the repo's trained GAT fixture explains the node,
    edge and graph problems, GAT-128x2 on the 20k / 160k graph 4 node and 4
    edge queries, GATv2, SAGE, GraphConv and GIN one node query each, all
@@ -163,14 +170,59 @@ def phase_build() -> None:
         log(f"build: {os.path.basename(lib.source)} in {lib.build_seconds:.2f} s")
         for line in ptxas_summary(lib.build_log):
             log(f"  {line}")
+    sass_hgmma(cuda_build.library("masked_gcn_layer.cu"))
+
+
+def _cuobjdump():
+    """The toolkit's ``cuobjdump``, or Triton's bundled copy, or None."""
+    import shutil
+
+    found = shutil.which("cuobjdump")
+    cands = [found] if found else []
+    cands.append(os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"))
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                                  "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in cands if c and os.access(c, os.X_OK)), None)
+
+
+def sass_hgmma(lib) -> None:
+    """Count the ``HGMMA`` instructions (``wgmma`` in SASS) of each kernel of
+    a built library; fails if the aggregation has none.  Without a
+    ``cuobjdump`` it says so and checks nothing."""
+    tool = _cuobjdump()
+    if tool is None:
+        log("HGMMA count: no cuobjdump (toolkit or Triton's copy) found; not checked")
+        return
+    sass = subprocess.run([tool, "-sass", lib._so_path()], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    for fn, k in counts.items():
+        log(f"HGMMA count ({os.path.basename(tool)}): {k:5d} in {fn[-70:]}")
+    agg = sum(k for fn, k in counts.items() if "masked_gcn_agg" in fn)
+    if agg == 0:
+        raise AssertionError("the aggregation kernel shows no HGMMA instruction")
+    log(f"HGMMA count: {agg} in the aggregation kernels of {os.path.basename(lib.source)}")
 
 
 def ptxas_summary(report: str) -> list:
     """One line per compiled kernel from ``nvcc -Xptxas -v``: registers,
-    shared memory and spills."""
+    shared memory and spills; and the compiler's warnings."""
     lines, name, spills = [], None, ""
     for line in report.splitlines():
-        if "Compiling entry function" in line:
+        if "warning" in line:
+            lines.append(line.strip()[-160:])
+        elif "Compiling entry function" in line:
             name = line.split("'")[1]
         elif "spill stores" in line:
             spills = line.strip()
@@ -188,6 +240,7 @@ def all_kernels():
         "gather_sum_static": spmm_cuda.GATHER_SUM_STATIC,
         "batched_gather_sum": spmm_cuda.BATCHED_GATHER_SUM,
         "masked_gcn_layer": gcn_layer_cuda.MASKED_GCN_LAYER,
+        "masked_gcn_layer.operand": gcn_layer_cuda.OPERAND,
         "masked_gcn_layer_batched": gcn_layer_cuda.MASKED_GCN_LAYER_BATCHED,
         "masked_gcn_layer_batched.transform": gcn_layer_cuda.TRANSFORM,
         "ell_valid_sum.v6": spmm_cuda.ELL_VALID_SUM["v6"],
@@ -495,11 +548,19 @@ def _dense_case(dev, n, e, b, c, c_in, seed):
 
 
 def check_dense_case(x, bias: bool, relu: bool, label: str):
-    """Kernels 2.1 and 2.2 against their plain versions on one input;
-    returns (err_2_1, err_2_2)."""
+    """Kernels 2.1 and 2.2 against their plain versions on one input, and
+    2.1's operand launch against its plain layout (bit for bit); returns
+    (err_2_1, err_2_2, err_operand)."""
     import torch
     from bikg_graph_explainability_public_tpu_torch.ops import gcn_layer_cuda as g
 
+    st = g.scaled_operand(x["s"], x["xw"])
+    st_want = g.scaled_operand_plain(x["s"], x["xw"])
+    torch.cuda.synchronize()
+    if st.shape != st_want.shape or not torch.equal(st, st_want):
+        raise AssertionError(f"{label}: the scaled operand differs from its plain layout")
+    err0 = 0.0  # equal bit for bit
+    del st, st_want
     bi = x["bias"] if bias else None
     got = g.masked_gcn_layer(x["adj16"], x["xw"], x["s"], x["self_w"], bi, relu)
     want = g.masked_gcn_layer_plain(x["adj16"], x["xw"], x["s"], x["self_w"], bi, relu)
@@ -532,39 +593,52 @@ def check_dense_case(x, bias: bool, relu: bool, label: str):
     b, n, c = want.shape
     log(
         f"kernel case {label}: N={n} B={b} C_in={x['h'].shape[2]} C={c} bias={bias} "
-        f"relu={relu} 2.1 max_abs_err={err1:.3e} 2.2 max_abs_err={err2:.3e} "
+        f"relu={relu} operand bit-exact, 2.1 max_abs_err={err1:.3e} 2.2 max_abs_err={err2:.3e} "
         f"(bf16-ulp bound max {ulp.max().item():.3e}) ok"
     )
-    return err1, err2
+    return err1, err2, err0
 
 
 def phase_kernel_dense(dev):
     """Kernels 2.1 and 2.2 at the bench's subgraph shape, then the edge
-    cases; returns their records."""
+    cases; returns their records and that of 2.1's operand launch."""
     import torch
     from bikg_graph_explainability_public_tpu_torch.ops import gcn_layer_cuda as g
 
     x = _dense_case(dev, SUB_N, SUB_E, SUB_B, HIDDEN, HIDDEN, seed=2)
-    err1, err2 = check_dense_case(x, True, True, "dense production")
-    a, s, sw, bias = x["adj16"], x["s"], x["self_w"], x["bias"]
-    ms1 = cuda_ms(lambda: g.masked_gcn_layer(a, x["xw"], s, sw, bias), 20)
-    plain1 = cuda_ms(lambda: g.masked_gcn_layer_plain(a, x["xw"], s, sw, bias), 3)
-    ms2 = cuda_ms(lambda: g.masked_gcn_layer_batched(a, x["h"], x["w_t"], s, sw, bias), 20)
-    plain2 = cuda_ms(lambda: g.masked_gcn_layer_batched_plain(a, x["h"], x["w_t"], s, sw, bias), 3)
+    err1, err2, err0 = check_dense_case(x, True, True, "dense production")
+    a, s, sw, bias, xw, h, w_t = (x[k] for k in ("adj16", "s", "self_w", "bias", "xw", "h", "w_t"))
+    ms1 = cuda_ms(lambda: g.masked_gcn_layer(a, xw, s, sw, bias), 20)
+    plain1 = cuda_ms(lambda: g.masked_gcn_layer_plain(a, xw, s, sw, bias), 3)
+    ms2 = cuda_ms(lambda: g.masked_gcn_layer_batched(a, h, w_t, s, sw, bias), 20)
+    plain2 = cuda_ms(lambda: g.masked_gcn_layer_batched_plain(a, h, w_t, s, sw, bias), 3)
+    # each launch alone: 2.1's operand and aggregation, 2.2's transform
+    # (which writes hw and the operand) and aggregation
+    ms_op = cuda_ms(lambda: g.scaled_operand(s, xw), 20)
+    plain_op = cuda_ms(lambda: g.scaled_operand_plain(s, xw), 5)
+    st = g.scaled_operand(s, xw)
+    agg1_ms = cuda_ms(lambda: g._aggregate(g.MASKED_GCN_LAYER, a, st, xw, s, sw, bias, True, False), 20)
+    ld = g.operand_stride(SUB_N)
     hw_out = torch.empty((SUB_B, SUB_N, HIDDEN), device=dev)
     transform_ms = cuda_ms(
         lambda: g.TRANSFORM.launch(
-            x["h"].data_ptr(), x["w_t"].data_ptr(), hw_out.data_ptr(),
-            SUB_B * SUB_N, HIDDEN, HIDDEN, torch.cuda.current_stream().cuda_stream,
+            h.data_ptr(), w_t.data_ptr(), s.data_ptr(), hw_out.data_ptr(), st.data_ptr(),
+            SUB_B, SUB_N, HIDDEN, HIDDEN, ld, 1, torch.cuda.current_stream().cuda_stream,
         ), 20,
     )
-    del hw_out
-    # yardstick only: one cuBLAS bf16 product of A with the scaled operands
-    # (bf16 out, f32 accumulation), without the prologue and the epilogue
-    scaled = (s[:, :, None] * x["xw"]).to(torch.bfloat16)
+    agg2_ms = cuda_ms(
+        lambda: g._aggregate(g.MASKED_GCN_LAYER_BATCHED, a, st, hw_out, s, sw, bias, True, True), 20
+    )
+    del hw_out, st
+    # yardsticks only, never called by the port: the cuBLAS bf16 product of
+    # A with the scaled operands (bf16 out, f32 accumulation) without the
+    # operand's construction and the epilogue; for 2.2 also like for like,
+    # the float32 h @ W and then that product
+    scaled = (s[:, :, None] * xw).to(torch.bfloat16)
     lib1 = cuda_ms(lambda: torch.matmul(a, scaled), 10)
-    scaled = (s[:, :, None] * torch.matmul(x["h"], x["w_t"])).to(torch.bfloat16)
+    scaled = (s[:, :, None] * torch.matmul(h, w_t)).to(torch.bfloat16)
     lib2 = cuda_ms(lambda: torch.matmul(a, scaled), 10)
+    lib2_full = cuda_ms(lambda: (torch.matmul(h, w_t), torch.matmul(a, scaled)), 10)
     del scaled
     n, b, c = SUB_N, SUB_B, HIDDEN
     # the product's work on this run's data: A is sparse, so the least work
@@ -577,10 +651,15 @@ def phase_kernel_dense(dev):
     bytes1 = n * n * 2 + n * c * 4 + 2 * b * n * 4 + c * 4 + b * n * c * 4
     bytes2 = n * n * 2 + b * n * HIDDEN * 4 + HIDDEN * c * 4 + 2 * b * n * 4 + c * 4 + b * n * c * 4
     records = []
-    for name, src_line, ms, plain, lib, err, nbytes, f32_ops in (
-        ("masked_gcn_layer", "ops/pallas_gcn.py:76", ms1, plain1, lib1, err1, bytes1, 0),
-        ("masked_gcn_layer_batched", "ops/pallas_gcn.py:104", ms2, plain2, lib2, err2, bytes2,
-         tr_ops),
+    for name, src_line, ms, plain, lib, err, nbytes, f32_ops, extra in (
+        ("masked_gcn_layer", "ops/pallas_gcn.py:76", ms1, plain1, lib1, err1, bytes1, 0,
+         {"library_note": "torch.matmul(A, bf16 scaled operands) alone: no operand "
+          "construction, no epilogue", "operand_ms": ms_op, "aggregation_ms": agg1_ms}),
+        ("masked_gcn_layer_batched", "ops/pallas_gcn.py:104", ms2, plain2, lib2_full, err2, bytes2,
+         tr_ops,
+         {"library_note": "like for like: torch.matmul(h, W) float32, then "
+          "torch.matmul(A, bf16 scaled operands); library_product_ms is the product alone",
+          "library_product_ms": lib2, "transform_ms": transform_ms, "aggregation_ms": agg2_ms}),
     ):
         # the tensor cores and the float32 units can work at once: the
         # larger of the two types' times
@@ -602,18 +681,38 @@ def phase_kernel_dense(dev):
             "bound_ms": times[bound_by] * 1e3,
             "bound_by": bound_by,
             "library_ms": lib,
-            "library_note": "torch.matmul(A, bf16 scaled operands) alone: "
-            "no prologue, no epilogue",
             "dense_bound_ms": dense_bound * 1e3,
+            **extra,
         })
         log(
             f"kernel {name} timing at N={n} B={b} C={c} (A: {nnz} nonzeros): ms={ms:.4f} "
-            f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={times[bound_by] * 1e3:.4f} "
-            f"({bound_by}) dense-product bound_ms={dense_bound * 1e3:.4f} "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} ({extra['library_note']}) "
+            f"data-dependent bound_ms={times[bound_by] * 1e3:.4f} ({bound_by}) "
+            f"dense-product bound_ms={dense_bound * 1e3:.4f} "
             f"dense bf16 TFLOP/s={dense_ops / ms / 1e9:.1f}"
         )
-    log(f"kernel 2.2's float32 transform alone: {transform_ms:.4f} ms "
-        f"({tr_ops / transform_ms / 1e9:.1f} TFLOP/s)")
+    log(f"kernel 2.1's launches alone: operand {ms_op:.4f} ms, aggregation {agg1_ms:.4f} ms "
+        f"({dense_ops / agg1_ms / 1e9:.1f} dense bf16 TFLOP/s); kernel 2.2's: float32 transform "
+        f"{transform_ms:.4f} ms ({tr_ops / transform_ms / 1e9:.1f} TFLOP/s), aggregation "
+        f"{agg2_ms:.4f} ms; cuBLAS product alone {lib1:.4f} / {lib2:.4f} ms")
+    # the operand launch: xw and s read once, S^T written once
+    op_bytes = n * c * 4 + b * n * 4 + b * c * ld * 2
+    records.append({
+        "name": "masked_gcn_layer.operand",
+        "route": "cuda",
+        "source": f"{PKG}/ops/csrc/masked_gcn_layer.cu",
+        "replaces": "bikg_graph_explainability_public_tpu/ops/pallas_gcn.py:84",
+        "launches": None,
+        "max_abs_err": err0,
+        "ms": ms_op,
+        "plain_ms": plain_op,
+        "bound_ms": op_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no one PyTorch call scales, rounds and transposes",
+    })
+    log(f"kernel masked_gcn_layer.operand: ms={ms_op:.4f} plain_ms={plain_op:.4f} "
+        f"bound_ms={op_bytes / HBM_BYTES_PER_S * 1e3:.4f} (bytes, {op_bytes / 1e9:.3f} GB)")
     del x
 
     cases = [  # (N, E, B, C, C_in, bias, relu)
@@ -621,12 +720,16 @@ def phase_kernel_dense(dev):
         (300, 2400, 7, 16, 128, True, True),
         (130, 1000, 3, 128, 128, False, False),
         (2040, 16000, 5, 128, 16, True, False),
+        (37, 150, 3, 16, 16, True, True),  # below one 64-row block, N % 8 != 0
+        (130, 1000, 1, 16, 16, True, False),  # one 16-column tile
+        (4096, 32768, 50, 128, 128, True, True),  # DENSE_CAP
     ]
     for i, (cn, ce, cb, cc, ci, cbias, crelu) in enumerate(cases):
         x = _dense_case(dev, cn, ce, cb, cc, ci, seed=40 + i)
-        e1, e2 = check_dense_case(x, cbias, crelu, f"dense edge{i}")
-        records[0]["max_abs_err"] = max(records[0]["max_abs_err"], e1)
-        records[1]["max_abs_err"] = max(records[1]["max_abs_err"], e2)
+        errs = check_dense_case(x, cbias, crelu, f"dense edge{i}")
+        for rec, e in zip(records, errs):
+            rec["max_abs_err"] = max(rec["max_abs_err"], e)
+        del x
     return records
 
 
@@ -913,7 +1016,7 @@ def phase_ell_edge_forward(dev) -> int:
 def phase_dense_fused(dev):
     """``backend="pallas"`` against ``"xla"`` on the bench's 2048 / 16384
     graph, ``graph_prediction``, 1000 masks in chunks of 250.  Returns the
-    launch counts of kernels 2.1 and 2.2."""
+    launch counts of kernel 2.1, its operand launch and kernel 2.2."""
     import torch
     from bikg_graph_explainability_public_tpu_torch.graph import from_arrays
     from bikg_graph_explainability_public_tpu_torch.models import fast_gcn
@@ -942,8 +1045,8 @@ def phase_dense_fused(dev):
     counts = read_counts()
     expect_counts(
         counts,
-        {"masked_gcn_layer": chunks, "masked_gcn_layer_batched": chunks,
-         "masked_gcn_layer_batched.transform": chunks},
+        {"masked_gcn_layer": chunks, "masked_gcn_layer.operand": chunks,
+         "masked_gcn_layer_batched": chunks, "masked_gcn_layer_batched.transform": chunks},
         "fused dense forward",
     )
     want = run(plain)
@@ -990,7 +1093,8 @@ def phase_dense_fused(dev):
         )
     log(f"fused dense forward one chunk, kernel vs plain route: max abs diff "
         f"{(got - want).abs().max().item():.3e} (rtol 1e-4, atol 1e-5) ok")
-    return counts["masked_gcn_layer"], counts["masked_gcn_layer_batched"]
+    return (counts["masked_gcn_layer"], counts["masked_gcn_layer.operand"],
+            counts["masked_gcn_layer_batched"])
 
 
 LADDER_ROWS = {  # kernel row -> (counter, schedule, TPU kernel it replaces)
@@ -1354,7 +1458,7 @@ def main() -> int:
     phase_build()
     rec_23, graph, table = phase_kernel(dev)
     rec_24 = phase_kernel_weighted(dev, table)
-    rec_21, rec_22 = phase_kernel_dense(dev)
+    rec_21, rec_22, rec_op = phase_kernel_dense(dev)
     ladder = phase_ladder(dev, graph, table)
     del graph, table
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
@@ -1367,13 +1471,13 @@ def main() -> int:
     expect_counts(read_counts(), {}, "edge path (dense tier, edge query plans)")
     rec_23["launches"] = phase_graph_path(dev, config, rec_23)
     rec_24["launches"] = phase_ell_edge_forward(dev)
-    rec_21["launches"], rec_22["launches"] = phase_dense_fused(dev)
+    rec_21["launches"], rec_op["launches"], rec_22["launches"] = phase_dense_fused(dev)
     reset_counts()
     phase_model_families(dev, config)
     expect_counts(read_counts(), {}, "model families (generic forward, segment operations)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
-    print(json.dumps({"kernels": [rec_21, rec_22, rec_23, rec_24] + ladder}), flush=True)
+    print(json.dumps({"kernels": [rec_21, rec_op, rec_22, rec_23, rec_24] + ladder}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {
