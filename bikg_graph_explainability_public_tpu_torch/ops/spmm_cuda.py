@@ -11,7 +11,10 @@ PyTorch versions and :func:`spmm_ell`, the entry that routes by schedule.
   kernels 2.5 and 2.8): the valid-prefix sum, 2.3 without the scale.
 * :func:`spmm_ell_weighted` (``csrc/spmm_ell_weighted.cu``, kernels 2.6 and
   2.7): slot weights, static ``[N, K]`` (multiplied) or ``[N, K, wb]`` with
-  ``wb`` in ``{1, B}`` (selected: a slot of weight 0 adds nothing).
+  ``wb`` in ``{1, B}`` (selected: a slot of weight 0 adds nothing); with
+  one weight per slot a band-major walk whose column band of the source
+  rows stays in L2 (:func:`band_plan` picks the band and the persistent
+  grid).
 
 Each wrapper launches its kernel for tensors on the card and runs the plain
 version for tensors on the CPU; there is no other route.  The kernels are
@@ -23,7 +26,8 @@ two kernels and counts each schedule's launches apart.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,8 +38,11 @@ _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGS = [_p, _i, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _p]
 # (feats, dtype, nbr, deg, out, n, k, w, f, vec, stream)
 _VALID_ARGS = [_p, _i, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _p]
-# (feats, dtype, nbr, deg, w_slot, out, n, k, w, f, wb, select, vec, stream)
-_WEIGHTED_ARGS = [_p, _i, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _i64, _i, _i, _p]
+# (feats, dtype, nbr, deg, w_slot, out, n, k, w, f, wb, select, band, rows,
+#  grid, counter, vec, stream)
+_WEIGHTED_ARGS = [
+    _p, _i, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _p, _i, _p,
+]
 
 #: kernel 2.3, the static separable gather-sum
 GATHER_SUM_STATIC = Kernel("gather_sum_static.cu", "gather_sum_static", _ARGS)
@@ -80,30 +87,41 @@ def _check_f32(name: str, t: Optional[torch.Tensor], shape, feats: torch.Tensor)
         raise ValueError(f"{name} must be {list(shape)} float32 on the features' device")
 
 
-def _launch(kernel: Kernel, table, feats: torch.Tensor, b: int, weights=(), scalars=()):
-    """The launch every wrapper shares: ``weights`` are the kernel's tensor
-    arguments after ``deg`` (None passes a null pointer), ``scalars`` its
-    integer arguments after ``f``."""
-    if feats.device.type != "cuda":
-        raise ValueError(f"unsupported device {feats.device}")
-    deg = table.deg
-    tensors = [feats, table.nbr, deg] + [t for t in weights if t is not None]
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{kernel.symbol} needs contiguous tensors")
-    n, k = table.nbr.shape
-    w = feats.shape[1]
-    f = w // b
-    out = torch.empty((n, w), dtype=torch.float32, device=feats.device)
-    if n == 0 or w == 0:
-        return out
+def _vec(feats: torch.Tensor, out: torch.Tensor, f: int) -> int:
+    """Elements per lane: 16 bytes' worth where F is a multiple of it and
+    both pointers are 16-byte aligned, else 1."""
     vec = 16 // feats.element_size()
     if f % vec or feats.data_ptr() % 16 or out.data_ptr() % 16:
         vec = 1
+    return vec
+
+
+def _prepare(kernel: Kernel, table, feats: torch.Tensor, weights):
+    """Device and contiguity checks; the float32 output ``[N, W]``."""
+    if feats.device.type != "cuda":
+        raise ValueError(f"unsupported device {feats.device}")
+    tensors = [feats, table.nbr, table.deg] + [t for t in weights if t is not None]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{kernel.symbol} needs contiguous tensors")
+    return torch.empty((table.nbr.shape[0], feats.shape[1]), dtype=torch.float32, device=feats.device)
+
+
+def _launch(kernel: Kernel, table, feats: torch.Tensor, b: int, weights=()):
+    """The launch of kernels 2.3-2.5 and 2.8: ``weights`` are the kernel's
+    tensor arguments after ``deg`` (None passes a null pointer)."""
+    out = _prepare(kernel, table, feats, weights)
+    deg = table.deg
+    n, k = table.nbr.shape
+    w = feats.shape[1]
+    f = w // b
+    if n == 0 or w == 0:
+        return out
+    vec = _vec(feats, out, f)
     with torch.cuda.device(feats.device):
         kernel.launch(
             feats.data_ptr(), _DTYPE_CODE[feats.dtype], table.nbr.data_ptr(), deg.data_ptr(),
             *(None if t is None else t.data_ptr() for t in weights),
-            out.data_ptr(), n, k, w, f, *scalars, vec,
+            out.data_ptr(), n, k, w, f, vec,
             torch.cuda.current_stream(feats.device).cuda_stream,
         )
     return out
@@ -237,6 +255,104 @@ def spmm_ell_weighted_plain(table, w_slot: torch.Tensor, feats: torch.Tensor, b:
     return out.view(n, w)
 
 
+#: the band walk's block, as in ``csrc/spmm_ell_weighted.cu``: threads (each
+#: warp takes its own work items), the rows of an item at most, and the
+#: persistent blocks per SM
+BAND_THREADS, BAND_MAX_ROWS, BAND_BLOCKS_PER_SM = 128, 256, 4
+#: the passes a warp makes over an item's rows (32 / lanes rows a pass)
+BAND_PASSES = 16
+#: the bytes of each source row a band takes: 64 float32 or 128 bfloat16
+#: columns, two 128-byte lines
+BAND_BYTES = 256
+#: the L2 share one band of all source rows may take (the H100's L2 is
+#: 50 MB); above it the band halves, down to one 128-byte line a row
+L2_BAND_BUDGET = 32 << 20
+_LINE_BYTES = 128
+
+
+class BandPlan(NamedTuple):
+    """The band walk of one call: ``band`` columns a band, ``rows``
+    destination rows a work item, ``grid`` persistent blocks, ``items``
+    work items (bands x row chunks, numbered band-major)."""
+
+    band: int
+    rows: int
+    grid: int
+    items: int
+
+
+def band_plan(
+    n: int, w: int, itemsize: int, vec: int, sms: int, band: Optional[int] = None,
+    passes: int = BAND_PASSES,
+) -> BandPlan:
+    """The band walk for ``[n, w]`` features of ``itemsize`` bytes read
+    ``vec`` elements a lane, on a card of ``sms`` SMs.  The band is
+    :data:`BAND_BYTES` of each row, halved while ``n * band * itemsize``
+    exceeds :data:`L2_BAND_BUDGET` (not below one 128-byte line), and no
+    wider than ``w`` or 32 lanes of a warp; ``band`` overrides that choice.
+    A work item is ``passes`` passes of a warp over its rows, at most
+    :data:`BAND_MAX_ROWS`.  A band is a multiple of ``vec``, so every band
+    starts 16-byte aligned where ``vec > 1``."""
+    if band is None:
+        band = BAND_BYTES // itemsize
+        while band * itemsize > _LINE_BYTES and n * band * itemsize > L2_BAND_BUDGET:
+            band //= 2
+        band = min(band, 32 * vec)
+    band = min(band, max(w, vec))
+    lanes = band // vec
+    if band % vec or not 1 <= lanes <= 32:
+        raise ValueError(f"band of {band} columns does not suit {vec}-element lanes")
+    rows = min(32 // lanes * passes, BAND_MAX_ROWS)
+    items = -(-n // rows) * -(-w // band)
+    return BandPlan(band, rows, min(items, sms * BAND_BLOCKS_PER_SM), items)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _weighted_args(table, w_slot, feats, out, b, vec, plan, counter, stream) -> tuple:
+    """The C function's arguments, in the order of :data:`_WEIGHTED_ARGS`;
+    ``counter`` is the band walk's (None for per-sample weights, which take
+    the row schedule and no plan)."""
+    n, k = table.nbr.shape
+    w = feats.shape[1]
+    wb = 1 if w_slot.dim() == 2 else w_slot.shape[2]
+    return (
+        feats.data_ptr(), _DTYPE_CODE[feats.dtype], table.nbr.data_ptr(), table.deg.data_ptr(),
+        w_slot.data_ptr(), out.data_ptr(), n, k, w, w // b, wb, int(w_slot.dim() == 3),
+        plan.band, plan.rows, plan.grid, counter, vec, stream,
+    )
+
+
+def uses_band_walk(w_slot: torch.Tensor, b: int) -> bool:
+    """Whether kernels 2.6/2.7 run the band walk for these weights: one
+    weight per slot (static, or broadcast, or per-sample with b = 1).
+    Per-sample weights ``[N, K, B]`` take the row schedule: a band lies in
+    one sample and would read one weight per 32-byte sector."""
+    return w_slot.dim() == 2 or w_slot.shape[2] == 1 or b == 1
+
+
+def _weighted_launch(kernel: Kernel, table, w_slot, feats, b: int, band=None, passes=BAND_PASSES):
+    """Launch kernels 2.6/2.7 on CUDA tensors; ``band`` and ``passes``
+    override :func:`band_plan`'s choice for the band walk."""
+    out = _prepare(kernel, table, feats, (w_slot,))
+    n, w = out.shape
+    if n == 0 or w == 0:
+        return out
+    vec = _vec(feats, out, w // b)
+    dev = feats.device
+    plan = band_plan(n, w, feats.element_size(), vec, _sm_count(dev.index), band, passes)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev) if uses_band_walk(w_slot, b) else None
+    with torch.cuda.device(dev):
+        kernel.launch(*_weighted_args(
+            table, w_slot, feats, out, b, vec, plan, None if counter is None else counter.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        ))
+    return out
+
+
 def spmm_ell_weighted(
     table, w_slot: torch.Tensor, feats: torch.Tensor, b: int, *, sched: str = "v3"
 ) -> torch.Tensor:
@@ -262,8 +378,7 @@ def spmm_ell_weighted(
     _check_f32("w_slot", w_slot, (n, k) if w_slot.dim() == 2 else (n, k, wb), feats)
     if feats.device.type == "cpu":
         return spmm_ell_weighted_plain(table, w_slot, feats, b)
-    select = int(w_slot.dim() == 3)
-    return _launch(SPMM_ELL_WEIGHTED[sched], table, feats, b, (w_slot,), (wb, select))
+    return _weighted_launch(SPMM_ELL_WEIGHTED[sched], table, w_slot, feats, b)
 
 
 #: the schedules of the JAX package's ``spmm_ell_pallas``

@@ -27,7 +27,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and 2.7, with static, broadcast and per-sample weights), the broadcast
    route of ``batched_gather_sum`` and the table route of
    ``weighted_gather_sum``, each route counted, held against its plain
-   version and timed at the production shape, then held in the edge cases;
+   version and timed at the production shape; the L2 probe (kernel 2.6 on
+   features 32, 64 and 128 columns wide, so that one band's gathers are
+   served from L2); then every route held in the edge cases and in those of
+   2.6/2.7's band walk (a ragged last band, W narrower than a band, F = 3);
 4. the node path: ``Explainer._explain`` (the arrays behind
    ``Explainer.run``) on ``node_prediction`` for the repo's trained 36-node
    fixture (Shapley and community mode) and for GCN-128x2 on a 20k-node /
@@ -1243,6 +1246,41 @@ def ladder_bound(table, weights, b, f, itemsize, mode) -> tuple:
     return t[by] * 1e3, by
 
 
+#: the L2 probe's feature widths (float32 columns): at N = 100000 features
+#: of 32 and 64 columns (12.8 and 25.6 MB) fit in the 50 MB L2, 128 (51 MB)
+#: does not
+PROBE_WIDTHS = (32, 64, 128)
+
+
+def l2_probe(table, weights) -> dict:
+    """Kernel 2.6 on narrow features ``[N, Wb]`` float32 (b = 1) with the
+    ladder's static and broadcast weights, 20 calls each after a warm-up,
+    so that a width that fits in L2 is served from it: ms per call and the
+    gather rate, the summed slots' source-row bytes (slots read x Wb x 4)
+    over that time.  Returns ``{(Wb, mode): (ms, GB/s)}``."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
+
+    dev = table.nbr.device
+    n = table.nbr.shape[0]
+    valid = table.valid > 0
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for wb in PROBE_WIDTHS:
+        x = torch.randn((n, wb), generator=gen, device=dev)
+        for mode in ("static", "broadcast"):
+            w = weights[mode]
+            read = valid if mode == "static" else valid & (w[..., 0] != 0)
+            gathered = int(read.sum()) * wb * 4
+            ms = cuda_ms(lambda: sc.spmm_ell_weighted(table, w, x, 1), 20)
+            out[(wb, mode)] = (ms, gathered / ms / 1e6)
+            log(f"L2 probe Wb={wb} {mode}: ms={ms:.4f} gathered={gathered / 1e6:.1f} MB "
+                f"gather_GBps={gathered / ms / 1e6:.1f} features={n * wb * 4 / 1e6:.1f} MB; "
+                f"{BIG_B * HIDDEN // wb} such bands x ms = {BIG_B * HIDDEN // wb * ms:.3f} ms")
+        del x
+    return out
+
+
 def phase_ladder(dev, graph, table) -> list:
     """The ELL SpMM entry ``spmm_ell`` and its callers on the production
     table (100k / 1M, K = 32), B = 50, F = 128, float32: every route once
@@ -1307,7 +1345,9 @@ def phase_ladder(dev, graph, table) -> list:
         extra = "".join(f"; {what} {t[m]:.4f} ms" for what, t in
                         (("torch.sparse.mm", library), ("plain", plain)) if m in t)
         log(f"ladder bound {m} weights: {bms:.4f} ms ({by}){extra}")
-    del feats, weights, ps
+    del feats, ps
+    probe = l2_probe(table, weights)
+    del weights
 
     # the edge cases: every route on small tables
     cases = [  # (b, K, F, dtype)
@@ -1322,17 +1362,33 @@ def phase_ladder(dev, graph, table) -> list:
         (48, 16, 8, torch.float32),
         (48, 32, 6, torch.float32),
     ]
-    for i, (b, k, f, dtype) in enumerate(cases):
-        t = _table(5000, 5000 * k // 2, k, seed=60 + i, device=dev, dead_rows=300, dead_srcs=200)
-        x, w, p, _ = ladder_inputs(t, b, f, dtype, 300 + i)
-        worst = 0.0
-        for label, _, select, call, plain_fn in ladder_routes(t, x, w, p, b):
-            err = hold_route(call(), plain_fn(), t, f"ladder edge{i} {label}", select)
-            errs[label] = max(errs[label], err)
-            worst = max(worst, err)
-        log(f"ladder case edge{i}: N=5000 K={k} b={b} F={f} {str(dtype)[6:]} "
-            f"deg0_rows={int((t.deg == 0).sum())} every route max_abs_err={worst:.3e} ok")
+    # the band walk of 2.6/2.7 (N x W x 4 > 2^31 bytes is the production
+    # shape): a ragged last band (W = 140), W narrower than one band, the
+    # scalar path (F = 3), each through every route
+    band_cases = [
+        (7, 16, 20, torch.float32),
+        (7, 32, 20, torch.bfloat16),
+        (1, 32, 8, torch.float32),
+        (1, 16, 8, torch.bfloat16),
+        (48, 32, 3, torch.float32),
+        (48, 16, 3, torch.bfloat16),
+    ]
+    for name, seed, group in (("edge", 60, cases), ("band", 80, band_cases)):
+        for i, (b, k, f, dtype) in enumerate(group):
+            t = _table(5000, 5000 * k // 2, k, seed=seed + i, device=dev, dead_rows=300, dead_srcs=200)
+            x, w, p, _ = ladder_inputs(t, b, f, dtype, 5 * seed + i)
+            worst = 0.0
+            for label, _, select, call, plain_fn in ladder_routes(t, x, w, p, b):
+                err = hold_route(call(), plain_fn(), t, f"ladder {name}{i} {label}", select)
+                errs[label] = max(errs[label], err)
+                worst = max(worst, err)
+            log(f"ladder case {name}{i}: N=5000 K={k} b={b} F={f} W={b * f} {str(dtype)[6:]} "
+                f"deg0_rows={int((t.deg == 0).sum())} every route max_abs_err={worst:.3e} ok")
 
+    # the band the walk takes at the production shape, and the probe's
+    # gather rate at that width (one band, resident in L2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    band = sc.band_plan(BIG_N, BIG_B * HIDDEN, 4, 4, sms).band
     records = []
     for row, (counter, sched, replaces) in LADDER_ROWS.items():
         valid_sum = counter.startswith("ell_valid_sum")
@@ -1359,6 +1415,8 @@ def phase_ladder(dev, graph, table) -> list:
                 rec[f"{m}_ms"] = ms[lb]
                 rec[f"{m}_bound_ms"] = bounds[m][0]
             rec["static_library_ms"] = library["static"]
+            rec["band_columns"] = band
+            rec["l2_gather_GBps"] = probe[(band, "static")][1]
         records.append(rec)
     return records
 
