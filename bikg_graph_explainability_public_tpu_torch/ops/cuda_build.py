@@ -1,10 +1,10 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Each ``csrc/*.cu`` file is one shared library with a plain C interface,
-compiled by ``nvcc`` for ``sm_90a`` at first CUDA use into
-``build/torch_kernels/`` at the root of the checkout and loaded with
-``ctypes``.  Nothing here runs when a module is imported, and nothing runs
-for tensors on the CPU.
+Each ``csrc/*.cu`` file, with the ``csrc/*.cuh`` headers it includes, is
+one shared library with a plain C interface, compiled by ``nvcc`` for
+``sm_90a`` at first CUDA use into ``build/torch_kernels/`` at the root of
+the checkout and loaded with ``ctypes``.  Nothing here runs when a module
+is imported, and nothing runs for tensors on the CPU.
 
 A :class:`Kernel` is one exported C function with its launch count:
 ``launches`` rises by one at every launch its wrapper makes and nowhere
@@ -56,8 +56,16 @@ class Library:
         return self._lib is not None
 
     def _so_path(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        """The library's path under :data:`BUILD_DIR`, named by a digest of
+        the source, every header beside it (any source may include one) and
+        the compiler's flags, so that an edit to any of them builds anew."""
+        h = hashlib.sha1()
+        headers = sorted(glob.glob(os.path.join(os.path.dirname(self.source), "*.cuh")))
+        for path in [self.source, *headers]:
+            with open(path, "rb") as f:
+                h.update(f.read())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        digest = h.hexdigest()[:12]
         stem = os.path.splitext(os.path.basename(self.source))[0]
         return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 

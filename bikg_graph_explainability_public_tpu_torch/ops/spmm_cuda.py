@@ -11,10 +11,12 @@ PyTorch versions and :func:`spmm_ell`, the entry that routes by schedule.
   kernels 2.5 and 2.8): the valid-prefix sum, 2.3 without the scale.
 * :func:`spmm_ell_weighted` (``csrc/spmm_ell_weighted.cu``, kernels 2.6 and
   2.7): slot weights, static ``[N, K]`` (multiplied) or ``[N, K, wb]`` with
-  ``wb`` in ``{1, B}`` (selected: a slot of weight 0 adds nothing); with
-  one weight per slot a band-major walk whose column band of the source
-  rows stays in L2 (:func:`band_plan` picks the band and the persistent
-  grid).
+  ``wb`` in ``{1, B}`` (selected: a slot of weight 0 adds nothing).
+
+Kernels 2.3, 2.5 and 2.8, and 2.6/2.7 with one weight per slot, run one
+band-major walk whose column band of the source rows stays in L2
+(``csrc/ell_band.cuh``; :func:`band_plan` picks the band and the persistent
+grid).
 
 Each wrapper launches its kernel for tensors on the card and runs the plain
 version for tensors on the CPU; there is no other route.  The kernels are
@@ -34,10 +36,14 @@ import torch
 from .cuda_build import Kernel
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# (feats, dtype, nbr, deg, post_scale | w_slot, out, n, k, w, f, vec, stream)
+# (feats, dtype, nbr, deg, w_slot, out, n, k, w, f, vec, stream)
 _ARGS = [_p, _i, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _p]
-# (feats, dtype, nbr, deg, out, n, k, w, f, vec, stream)
-_VALID_ARGS = [_p, _i, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _p]
+# (feats, dtype, nbr, deg, post_scale, out, n, k, w, f, band, rows, grid,
+#  counter, vec, stream)
+_STATIC_ARGS = [_p, _i, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _i, _i, _p, _i, _p]
+# (feats, dtype, nbr, deg, out, n, k, w, f, band, rows, grid, counter, vec,
+#  stream)
+_VALID_ARGS = [_p, _i, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _i, _i, _p, _i, _p]
 # (feats, dtype, nbr, deg, w_slot, out, n, k, w, f, wb, select, band, rows,
 #  grid, counter, vec, stream)
 _WEIGHTED_ARGS = [
@@ -45,7 +51,7 @@ _WEIGHTED_ARGS = [
 ]
 
 #: kernel 2.3, the static separable gather-sum
-GATHER_SUM_STATIC = Kernel("gather_sum_static.cu", "gather_sum_static", _ARGS)
+GATHER_SUM_STATIC = Kernel("gather_sum_static.cu", "gather_sum_static", _STATIC_ARGS)
 #: kernel 2.4, the weighted gather-sum
 BATCHED_GATHER_SUM = Kernel("batched_gather_sum.cu", "batched_gather_sum", _ARGS)
 #: kernels 2.5 (``sched="v6"``) and 2.8 (``"v5"``): one CUDA function,
@@ -106,11 +112,9 @@ def _prepare(kernel: Kernel, table, feats: torch.Tensor, weights):
     return torch.empty((table.nbr.shape[0], feats.shape[1]), dtype=torch.float32, device=feats.device)
 
 
-def _launch(kernel: Kernel, table, feats: torch.Tensor, b: int, weights=()):
-    """The launch of kernels 2.3-2.5 and 2.8: ``weights`` are the kernel's
-    tensor arguments after ``deg`` (None passes a null pointer)."""
-    out = _prepare(kernel, table, feats, weights)
-    deg = table.deg
+def _launch(kernel: Kernel, table, feats: torch.Tensor, b: int, w_slot: torch.Tensor):
+    """The launch of kernel 2.4 (its row schedule)."""
+    out = _prepare(kernel, table, feats, (w_slot,))
     n, k = table.nbr.shape
     w = feats.shape[1]
     f = w // b
@@ -119,9 +123,8 @@ def _launch(kernel: Kernel, table, feats: torch.Tensor, b: int, weights=()):
     vec = _vec(feats, out, f)
     with torch.cuda.device(feats.device):
         kernel.launch(
-            feats.data_ptr(), _DTYPE_CODE[feats.dtype], table.nbr.data_ptr(), deg.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in weights),
-            out.data_ptr(), n, k, w, f, vec,
+            feats.data_ptr(), _DTYPE_CODE[feats.dtype], table.nbr.data_ptr(), table.deg.data_ptr(),
+            w_slot.data_ptr(), out.data_ptr(), n, k, w, f, vec,
             torch.cuda.current_stream(feats.device).cuda_stream,
         )
     return out
@@ -160,7 +163,7 @@ def gather_sum_static(
     _check_f32("post_scale", post_scale, (table.nbr.shape[0], b), feats)
     if feats.device.type == "cpu":
         return gather_sum_static_plain(table, feats, b, post_scale)
-    return _launch(GATHER_SUM_STATIC, table, feats, b, (post_scale,))
+    return _static_launch(GATHER_SUM_STATIC, table, feats, b, post_scale)
 
 
 def ell_valid_sum(table, feats: torch.Tensor, b: int, *, sched: str = "v6") -> torch.Tensor:
@@ -176,7 +179,7 @@ def ell_valid_sum(table, feats: torch.Tensor, b: int, *, sched: str = "v6") -> t
         raise ValueError(f"ell_valid_sum serves sched 'v6' and 'v5', not {sched!r}")
     if feats.device.type == "cpu":
         return gather_sum_static_plain(table, feats, b)
-    return _launch(ELL_VALID_SUM[sched], table, feats, b)
+    return _static_launch(ELL_VALID_SUM[sched], table, feats, b)
 
 
 def slot_weights(table, edge_weight: torch.Tensor) -> torch.Tensor:
@@ -232,7 +235,7 @@ def batched_gather_sum(
     _check_f32("w_slot", w_slot, (n, k, b), feats)
     if feats.device.type == "cpu":
         return batched_gather_sum_plain(table, feats, b, w_slot)
-    return _launch(BATCHED_GATHER_SUM, table, feats, b, (w_slot,))
+    return _launch(BATCHED_GATHER_SUM, table, feats, b, w_slot)
 
 
 def spmm_ell_weighted_plain(table, w_slot: torch.Tensor, feats: torch.Tensor, b: int) -> torch.Tensor:
@@ -255,10 +258,12 @@ def spmm_ell_weighted_plain(table, w_slot: torch.Tensor, feats: torch.Tensor, b:
     return out.view(n, w)
 
 
-#: the band walk's block, as in ``csrc/spmm_ell_weighted.cu``: threads (each
+#: the band walk's block, as in ``csrc/ell_band.cuh``: threads (each
 #: warp takes its own work items), the rows of an item at most, and the
 #: persistent blocks per SM
 BAND_THREADS, BAND_MAX_ROWS, BAND_BLOCKS_PER_SM = 128, 256, 4
+#: the slots a warp stages at a time, over the rows of its item
+BAND_WARP_STAGE = 512
 #: the passes a warp makes over an item's rows (32 / lanes rows a pass)
 BAND_PASSES = 16
 #: the bytes of each source row a band takes: 64 float32 or 128 bfloat16
@@ -279,6 +284,13 @@ class BandPlan(NamedTuple):
     rows: int
     grid: int
     items: int
+
+    @property
+    def tile(self) -> int:
+        """The slots of a row that a warp stages at a time (``kt``): a row
+        of higher degree takes more than one slot tile, and kernel 2.3
+        scales it in the last."""
+        return BAND_WARP_STAGE // self.rows
 
 
 def band_plan(
@@ -334,6 +346,50 @@ def uses_band_walk(w_slot: torch.Tensor, b: int) -> bool:
     return w_slot.dim() == 2 or w_slot.shape[2] == 1 or b == 1
 
 
+def _plan(feats: torch.Tensor, out: torch.Tensor, b: int, band, passes):
+    """(vec, plan) of a band-walk launch that writes ``out``."""
+    n, w = out.shape
+    vec = _vec(feats, out, w // b)
+    sms = _sm_count(feats.device.index)
+    return vec, band_plan(n, w, feats.element_size(), vec, sms, band, passes)
+
+
+def _static_args(kernel: Kernel, table, feats, out, b, post_scale, vec, plan, counter,
+                 stream) -> tuple:
+    """The C function's arguments, in the order of ``kernel.argtypes``:
+    :data:`_STATIC_ARGS` (``gather_sum_static``; a ``post_scale`` of None
+    passes a null pointer) or :data:`_VALID_ARGS` (``ell_valid_sum``, which
+    takes no scale)."""
+    n, k = table.nbr.shape
+    w = feats.shape[1]
+    scale = (None if post_scale is None else post_scale.data_ptr(),)
+    return (
+        feats.data_ptr(), _DTYPE_CODE[feats.dtype], table.nbr.data_ptr(), table.deg.data_ptr(),
+        *(scale if kernel.argtypes is _STATIC_ARGS else ()),
+        out.data_ptr(), n, k, w, w // b, plan.band, plan.rows, plan.grid, counter, vec, stream,
+    )
+
+
+def _static_launch(kernel: Kernel, table, feats, b: int, post_scale=None, band=None,
+                   passes=BAND_PASSES):
+    """Launch kernel 2.3 (``post_scale`` or None), 2.5 or 2.8 on CUDA
+    tensors: the band walk; ``band`` and ``passes`` override
+    :func:`band_plan`'s choice."""
+    out = _prepare(kernel, table, feats, (post_scale,))
+    n, w = out.shape
+    if n == 0 or w == 0:
+        return out
+    vec, plan = _plan(feats, out, b, band, passes)
+    dev = feats.device
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        kernel.launch(*_static_args(
+            kernel, table, feats, out, b, post_scale, vec, plan, counter.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        ))
+    return out
+
+
 def _weighted_launch(kernel: Kernel, table, w_slot, feats, b: int, band=None, passes=BAND_PASSES):
     """Launch kernels 2.6/2.7 on CUDA tensors; ``band`` and ``passes``
     override :func:`band_plan`'s choice for the band walk."""
@@ -341,9 +397,8 @@ def _weighted_launch(kernel: Kernel, table, w_slot, feats, b: int, band=None, pa
     n, w = out.shape
     if n == 0 or w == 0:
         return out
-    vec = _vec(feats, out, w // b)
+    vec, plan = _plan(feats, out, b, band, passes)
     dev = feats.device
-    plan = band_plan(n, w, feats.element_size(), vec, _sm_count(dev.index), band, passes)
     counter = torch.zeros(1, dtype=torch.int32, device=dev) if uses_band_walk(w_slot, b) else None
     with torch.cuda.device(dev):
         kernel.launch(*_weighted_args(

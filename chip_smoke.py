@@ -16,7 +16,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. each kernel against its plain PyTorch version on the card, with its
    time, the plain version's, a library call's and the least time the card
    could take: 2.3 and 2.4 (the ELL gather-sums) at the production shape
-   (100k nodes / 1M edges, B=50, F=128, float32) and in the edge cases;
+   (100k nodes / 1M edges, B=50, F=128, float32) and in the edge cases
+   (2.3, 2.5 and 2.8 run the band walk of ``ops/csrc/ell_band.cuh``, as
+   2.6/2.7 do with one weight per slot; the phase counts the production
+   rows whose degree exceeds the walk's slot tile, which 2.3 scales in
+   their last tile, and fails if there are none);
    2.1 (with its operand launch) and 2.2 (the fused dense layers) at the
    bench's subgraph shape (2048 nodes / 16384 edges, B=250, C=128), each
    launch alone too, beside both bounds (A's nonzeros and the dense
@@ -24,13 +28,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    seven edge cases (N = 37 to 4096);
    then the ELL SpMM entry ``spmm_ell`` and its schedule routes (the
    ladder: v7 on 2.3 and 2.4, v6 and v5 on 2.5 and 2.8, v3 and fused on 2.6
-   and 2.7, with static, broadcast and per-sample weights), the broadcast
+   and 2.7, with static, broadcast and per-sample weights; all but 2.4 and
+   the per-sample mode on the band walk), the broadcast
    route of ``batched_gather_sum`` and the table route of
    ``weighted_gather_sum``, each route counted, held against its plain
    version and timed at the production shape; the L2 probe (kernel 2.6 on
    features 32, 64 and 128 columns wide, so that one band's gathers are
    served from L2); then every route held in the edge cases and in those of
-   2.6/2.7's band walk (a ragged last band, W narrower than a band, F = 3);
+   the band walk (a ragged last band, W narrower than a band, F = 3);
 4. the node path: ``Explainer._explain`` (the arrays behind
    ``Explainer.run``) on ``node_prediction`` for the repo's trained 36-node
    fixture (Shapley and community mode) and for GCN-128x2 on a 20k-node /
@@ -280,8 +285,10 @@ def _table(n, e, k, seed, device, *, dead_rows=0, dead_srcs=0):
 
 
 def check_kernel_case(table, b, f, dtype, scale, seed, label):
-    """Kernel against plain on one input; returns (max_abs_err, feats, ps)."""
+    """Kernel 2.3 against plain on one input; returns (max_abs_err, feats,
+    ps, the band walk's plan, the rows of degree above its slot tile)."""
     import torch
+    from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
     from bikg_graph_explainability_public_tpu_torch.ops.spmm_cuda import (
         gather_sum_static, gather_sum_static_plain,
     )
@@ -297,12 +304,17 @@ def check_kernel_case(table, b, f, dtype, scale, seed, label):
     got = gather_sum_static(table, feats, b, post_scale=ps)
     want = gather_sum_static_plain(table, feats, b, post_scale=ps)
     err = hold_gather_sum(table, got, want, label)
+    # the walk's plan for this call: rows of degree above its slot tile take
+    # more than one tile and are scaled in the last
+    _, plan = sc._plan(feats, got, b, None, sc.BAND_PASSES)
+    above = int((table.deg > plan.tile).sum())
     log(
         f"kernel case {label}: N={n} K={table.k} b={b} F={f} {str(dtype)[6:]} "
         f"post_scale={scale} deg0_rows={int((table.deg == 0).sum())} "
-        f"nan_rows={int((~used).sum())} max_abs_err={err:.3e} ok"
+        f"nan_rows={int((~used).sum())} band={plan.band} tile={plan.tile} "
+        f"rows_above_tile={above} max_abs_err={err:.3e} ok"
     )
-    return err, feats, ps
+    return err, feats, ps, plan, above
 
 
 def hold_gather_sum(table, got, want, label) -> float:
@@ -342,9 +354,16 @@ def phase_kernel(dev):
     table = build_neighbor_table(graph)
     deg = table.deg
     log(f"host: 100k/1M graph + neighbour table in {time.perf_counter() - t0:.2f} s (K={table.k})")
-    err, feats, ps = check_kernel_case(
+    err, feats, ps, plan, above = check_kernel_case(
         table, BIG_B, HIDDEN, torch.float32, True, 0, "production"
     )
+    if above == 0:
+        raise AssertionError(
+            f"production table: no row of degree above the walk's {plan.tile}-slot tile, "
+            "so the scale in a row's last tile is not exercised"
+        )
+    log(f"production table: {above} rows of degree above the {plan.tile}-slot tile "
+        f"(max degree {int(deg.max())}); {plan.band}-column bands, {plan.rows} rows an item")
 
     ms = cuda_ms(lambda: gather_sum_static(table, feats, BIG_B, post_scale=ps), 20)
     plain_ms = cuda_ms(lambda: gather_sum_static_plain(table, feats, BIG_B, post_scale=ps), 3)
@@ -402,7 +421,7 @@ def phase_kernel(dev):
     ]
     for i, (b, k, f, dtype, scale) in enumerate(cases):
         t = _table(5000, 5000 * k // 2, k, seed=10 + i, device=dev, dead_rows=300, dead_srcs=200)
-        case_err, _, _ = check_kernel_case(t, b, f, dtype, scale, 100 + i, f"edge{i}")
+        case_err, *_ = check_kernel_case(t, b, f, dtype, scale, 100 + i, f"edge{i}")
         err = max(err, case_err)
     return {
         "name": "gather_sum_static",
@@ -417,6 +436,8 @@ def phase_kernel(dev):
         "bound_by": bound_by,
         "library_ms": library_ms,
         "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+        "band_columns": plan.band,
+        "rows_above_tile": above,
     }, graph, table
 
 
@@ -1415,8 +1436,8 @@ def phase_ladder(dev, graph, table) -> list:
                 rec[f"{m}_ms"] = ms[lb]
                 rec[f"{m}_bound_ms"] = bounds[m][0]
             rec["static_library_ms"] = library["static"]
-            rec["band_columns"] = band
             rec["l2_gather_GBps"] = probe[(band, "static")][1]
+        rec["band_columns"] = band
         records.append(rec)
     return records
 

@@ -1,6 +1,7 @@
-"""PyTorch port: the host side of kernels 2.6/2.7's band walk
-(``ops/spmm_cuda.py``): the band and grid plan, which weights take it, and
-the argument list of the C function.
+"""PyTorch port: the host side of the band walk (``ops/spmm_cuda.py``) that
+kernels 2.3, 2.5, 2.8 and 2.6/2.7 run: the band and grid plan, which
+weights take it, the argument lists of the C functions, and the walk's slot
+tiles in numpy.
 
 The kernel itself runs only on the card, where ``chip_smoke.py`` holds it
 against its plain version; here the plan it is launched with is checked at
@@ -10,11 +11,14 @@ the ladder's production shape and at the shapes of its edge cases.
 from __future__ import annotations
 
 import ctypes
+import os
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from bikg_graph_explainability_public_tpu_torch.ops import cuda_build
 from bikg_graph_explainability_public_tpu_torch.ops import ell as tell
 from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
 
@@ -138,3 +142,171 @@ def test_weighted_args_match_the_c_signature(mode, dtype):
     assert args[10] == (b if mode == "per_sample" else 1) and args[11] == int(mode != "static")
     assert args[12:15] == (plan.band, plan.rows, plan.grid) and args[15] == counter.data_ptr()
     assert args[16] == vec
+
+
+# ---------------------------------------------------------------------------
+# kernels 2.3, 2.5 and 2.8 (csrc/gather_sum_static.cu) on the same walk
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "int64_t": ctypes.c_int64}
+
+
+def _c_declaration(source: str, symbol: str) -> list:
+    """The ctypes of the parameters of ``extern "C" int symbol(...)`` in
+    ``csrc/<source>``, read from the source text."""
+    with open(os.path.join(cuda_build.CSRC, source)) as f:
+        text = f.read()
+    m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
+    assert m, f"no extern \"C\" {symbol} in {source}"
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    return [_C_TYPES[p.rsplit(" ", 1)[0]] for p in params]
+
+
+@pytest.mark.parametrize("name", ["gather_sum_static", "ell_valid_sum.v6", "ell_valid_sum.v5",
+                                  "batched_gather_sum", "spmm_ell_weighted.v3",
+                                  "spmm_ell_weighted.fused"])
+def test_argtypes_match_the_c_declarations(name):
+    """Each wrapper's ctypes list is its C function's parameter list, type
+    by type (a 32-bit int where the C side takes a pointer or an int64_t
+    would cut the value)."""
+    symbol, _, sched = name.partition(".")
+    kernel = {"gather_sum_static": sc.GATHER_SUM_STATIC,
+              "batched_gather_sum": sc.BATCHED_GATHER_SUM,
+              "ell_valid_sum": sc.ELL_VALID_SUM.get(sched),
+              "spmm_ell_weighted": sc.SPMM_ELL_WEIGHTED.get(sched)}[symbol]
+    assert kernel.symbol == symbol
+    source = os.path.basename(kernel.library.source)
+    assert kernel.argtypes == _c_declaration(source, symbol)
+
+
+@pytest.mark.parametrize("kernel,scaled", [
+    ("gather_sum_static", True),
+    ("gather_sum_static", False),
+    ("v6", False),
+    ("v5", False),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_static_args_match_the_c_signature(kernel, scaled, dtype):
+    """The argument list of kernels 2.3 (with and without ``post_scale``),
+    2.5 and 2.8 has the C function's length and, position by position, a
+    value of its type, with the band walk's plan and counter where the C
+    function reads them."""
+    k = sc.GATHER_SUM_STATIC if kernel == "gather_sum_static" else sc.ELL_VALID_SUM[kernel]
+    b, f = 4, 8
+    table = _table()
+    feats = torch.zeros((64, b * f), dtype=dtype)
+    out = torch.empty((64, b * f))
+    ps = torch.ones((64, b)) if scaled else None
+    vec = _vec(f, dtype)
+    plan = sc.band_plan(64, b * f, feats.element_size(), vec, SMS)
+    counter = torch.zeros(1, dtype=torch.int32)
+    args = sc._static_args(k, table, feats, out, b, ps, vec, plan, counter.data_ptr(), 0)
+    assert len(args) == len(k.argtypes)
+    bits = {ctypes.c_int: 32, ctypes.c_int64: 64}
+    for i, (arg, ctype) in enumerate(zip(args, k.argtypes)):
+        if ctype is ctypes.c_void_p:
+            assert arg is None or (isinstance(arg, int) and 0 <= arg < 2**64), i
+        else:
+            half = 2 ** (bits[ctype] - 1)
+            assert isinstance(arg, int) and -half <= arg < half, i
+    assert args[:4] == (feats.data_ptr(), 0 if dtype == torch.float32 else 1,
+                        table.nbr.data_ptr(), table.deg.data_ptr())
+    if k is sc.GATHER_SUM_STATIC:  # the scale's pointer, null without one
+        assert args[4] == (ps.data_ptr() if scaled else None)
+        rest = args[5:]
+    else:
+        rest = args[4:]
+    n, kk = table.nbr.shape
+    assert rest == (out.data_ptr(), n, kk, b * f, f, plan.band, plan.rows, plan.grid,
+                    counter.data_ptr(), vec, 0)
+
+
+# (b, K, F, dtype): kernel 2.3's production shape, then the ladder's edge
+# cases and the band walk's (a ragged last band, W narrower than a band,
+# the scalar path) as chip_smoke.py draws them
+STATIC_SHAPES = [
+    (50, 32, 128, torch.float32),
+    (50, 32, 128, torch.bfloat16),
+    (1, 8, 128, torch.float32),
+    (16, 12, 64, torch.float32),
+    (48, 12, 8, torch.bfloat16),
+    (48, 32, 6, torch.float32),
+    (7, 16, 20, torch.float32),
+    (7, 32, 20, torch.bfloat16),
+    (1, 32, 8, torch.float32),
+    (1, 16, 8, torch.bfloat16),
+    (48, 32, 3, torch.float32),
+    (48, 16, 3, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,k,f,dtype", STATIC_SHAPES)
+def test_static_band_plan(b, k, f, dtype):
+    """The plan of kernels 2.3/2.5/2.8: 256 bytes of each row at the
+    production shape (64 float32 / 128 bfloat16 columns, 32 rows an item,
+    16 slots a tile, so rows of degree 17-32 take two tiles); everywhere an
+    item's staged slots fit the warp's 512, and the scalar lanes of a band
+    may span samples (each lane reads its own scale)."""
+    n = 100_000 if b == 50 else 5000
+    w, size = b * f, dtype.itemsize
+    vec = _vec(f, dtype)
+    plan = sc.band_plan(n, w, size, vec, SMS)
+    if b == 50:
+        assert (plan.band, plan.rows, plan.tile) == (256 // size, 32, 16)
+        assert plan.tile < k  # the production table's rows above 16 slots take two tiles
+    assert 1 <= plan.tile and plan.rows * plan.tile <= sc.BAND_WARP_STAGE
+    assert plan.rows <= sc.BAND_MAX_ROWS
+    lanes = plan.band // vec
+    assert 1 <= lanes <= 32 and plan.band % vec == 0
+    # 16-byte lanes lie in one sample: one scale per lane
+    if vec > 1:
+        assert f % vec == 0
+    for c in range(0, w, plan.band):
+        for lane in range(lanes):
+            col = c + lane * vec
+            if col < w:
+                assert col // f == (col + vec - 1) // f
+
+
+def _walk_model(table, feats, b, ps, tile, scale_each_tile=False):
+    """The slot tiles of the walk in numpy: a row's sum is built ``tile``
+    slots at a time, each tile adding to the partial sum the last one
+    stored, and scaled in the row's last tile (or, with
+    ``scale_each_tile``, wrongly in every tile)."""
+    nbr, deg = table.nbr.numpy(), table.deg.numpy()
+    x = feats.float().numpy()
+    n, w = nbr.shape[0], x.shape[1]
+    f = w // b
+    scale = np.repeat(ps.numpy(), f, axis=1)  # [N, W]: post_scale[v, c // F]
+    out = np.zeros((n, w), np.float32)
+    for v in range(n):
+        for j0 in range(0, max(int(deg[v]), 1), tile):
+            acc = out[v].copy()
+            for j in range(j0, min(int(deg[v]), j0 + tile)):
+                acc += x[nbr[v, j]]
+            if scale_each_tile or j0 + tile >= deg[v]:
+                acc *= scale[v]
+            out[v] = acc
+    return out
+
+
+@pytest.mark.parametrize("tile", [2, 3, 16])
+def test_walk_scales_each_row_once_in_its_last_tile(tile):
+    """Rows of degree above a tile: the walk's partial sums, scaled in the
+    last tile only, give the plain version bit for bit; scaling every
+    tile's store would not (the trap the kernel avoids)."""
+    from bikg_graph_explainability_public_tpu_torch.ops.spmm_cuda import gather_sum_static_plain
+
+    b, f = 3, 4
+    table = _table(n=64, k=8, seed=5)
+    deg = table.deg.numpy()
+    assert (deg > tile).any() or tile == 16
+    assert (deg == 0).any()
+    rng = np.random.default_rng(6)
+    feats = torch.from_numpy(rng.standard_normal((64, b * f)).astype(np.float32))
+    ps = torch.from_numpy(rng.standard_normal((64, b)).astype(np.float32) + 2.0)
+    want = gather_sum_static_plain(table, feats, b, ps).numpy()
+    np.testing.assert_array_equal(_walk_model(table, feats, b, ps, tile), want)
+    if (deg > tile).any():
+        wrong = _walk_model(table, feats, b, ps, tile, scale_each_tile=True)
+        assert not np.allclose(wrong[deg > tile], want[deg > tile])
