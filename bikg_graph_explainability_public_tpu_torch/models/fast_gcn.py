@@ -342,9 +342,9 @@ class FastBatchedGCN:
         h = relu(h)
         b, n = self_w.shape
         if is_edge and len(convs) > 1:
-            # edge masks are not separable: the slot-layout coefficients of
-            # layer 1 are the weights of every later layer, [B,N,K] -> [N,K,B]
-            w_slot = coeff.permute(1, 2, 0).contiguous()
+            # edge masks are not separable: the slot coefficients of layer 1,
+            # sample-major [B,N,K] as made, are the weights of every later layer
+            w_sample = coeff.contiguous()
         elif not is_edge:
             # node masks are: w[e] = a[snd]*a[rcv], a = mask * deg^-1/2
             a_bn = mf * torch.sqrt(self_w)  # [B, N]
@@ -354,7 +354,7 @@ class FastBatchedGCN:
             # batch-contiguous layout: every slot reads one contiguous row
             hw_t = hw.transpose(0, 1).reshape(n, b * f_dim)
             if is_edge:
-                out_t = weighted_gather_sum_batched(None, hw_t, b, table=self.table, w_slot=w_slot)
+                out_t = weighted_gather_sum_batched(None, hw_t, b, table=self.table, w_sample=w_sample)
             else:
                 out_t = gather_sum_batched_separable(a_bn, hw_t, b, table=self.table)
             h = out_t.view(n, b, f_dim).transpose(0, 1) + self_w[:, :, None] * hw

@@ -1,6 +1,8 @@
-// The band walk shared by the static ELL gather-sums (Hopper, sm_90a):
-// gather_sum_static.cu (kernels 2.3, 2.5 and 2.8) and the static and
-// broadcast modes of spmm_ell_weighted.cu (kernels 2.6 and 2.7).
+// The band walk shared by the ELL gather-sums (Hopper, sm_90a):
+// gather_sum_static.cu (kernels 2.3, 2.5 and 2.8), the static and broadcast
+// modes of spmm_ell_weighted.cu (kernels 2.6 and 2.7, and 2.9 on the static
+// mode) and batched_gather_sum.cu (kernel 2.4, per-sample weights held
+// sample-major).
 //
 //   out[v, c] = scale(v, c) * sum_{k < deg[v]} term(w[v, k], feats[nbr[v, k], c])
 //
@@ -13,7 +15,11 @@
 //   kStatic  w_slot [N, K]: w * x (a multiply);
 //   kSelect  w_slot [N, K] (one weight per slot for every sample): w * x
 //            where w != 0 and nothing where w == 0 (that slot's source row
-//            is not read).
+//            is not read);
+//   kSample  w_bnk [B, N, K] (one weight per slot and sample, sample-major):
+//            w[s, v, k] * x on the columns of sample s, the product rounded
+//            before the sum (no fused multiply-add), so that the sum is bit
+//            for bit the plain version's term = w * x; out += term.
 //
 // With SCALE the finished sum of each column c is multiplied once by
 // post_scale[v, c / F] ([N, B] float32).  Sums accumulate in float32, slots
@@ -48,6 +54,18 @@
 // lanes (F not a multiple of 16 bytes) gather into registers.  No warp
 // waits for another, so nothing can hang.
 //
+// Sample-major weights (kSample).  A band of F columns or fewer that lies in
+// one sample s = c0 / F needs, for its item of rows v0 .. v0 + rows, the run
+// w_bnk[s, v0 .. v0 + rows, 0 .. K): rows x K contiguous floats, the same
+// run that kStatic stages from [N, K], at a base offset of s * N * K (64-bit).
+// So the walk stages it the same way and moves the same weight bytes: each
+// sample's [N, K] slice (12.8 MB at the production shape) is read from HBM
+// for its first band and from L2 for the next.  The slot-major [N, K, B]
+// layout would read one weight per 32-byte sector there (PERF.md, PR 5).
+// Where a band spans samples (F < band, or F not a multiple of it) each lane
+// reads its own sample's weights, w_bnk[col / F, v, j0 ..], from global memory
+// (a lane's VEC columns lie in one sample since F % VEC == 0).
+//
 // The scale (SCALE).  A row of degree above kt takes several slot tiles: a
 // later tile adds to the partial sum that the earlier one stored, so the
 // scale is applied only in the row's last tile (j0 + kt >= deg); a row of
@@ -67,8 +85,8 @@
 // Guarantees: slot k >= deg[v] is never read (NaN in source rows that only
 // invalid slots name cannot reach the sum, rows of degree 0 come out as
 // exact zeros, times the scale); in the select mode the source row of a
-// slot of weight 0 is never read; the static mode multiplies and keeps
-// 0 * NaN; offsets are 64-bit (N * W is above 2^31 at the production shape).
+// slot of weight 0 is never read; the static and sample-major modes multiply
+// and keep 0 * NaN; offsets are 64-bit (N * W is above 2^31 at the production shape).
 
 #pragma once
 
@@ -87,7 +105,7 @@ constexpr int kBatch = 16;           // slots of a row in flight (cp.async path)
 constexpr int kUnroll = 8;           // slots of a row in flight (register path)
 
 // What a valid slot adds (see the head of this file).
-enum class Weights { kUnit, kStatic, kSelect };
+enum class Weights { kUnit, kStatic, kSelect, kSample };
 
 // One warp's shared memory: the landing slots of its cp.async gathers (one
 // 16-byte slot per lane and slot of the batch) and its staged item.
@@ -95,7 +113,7 @@ struct WarpSmem {
   uint4 gather[kBatch * 32];
   int32_t nbr[kWarpStage];
   union {
-    float w[kWarpStage];     // the slots' weights (kStatic, kSelect)
+    float w[kWarpStage];     // the slots' weights (kStatic, kSelect, kSample)
     float scale[kWarpRows];  // the rows' scales (kUnit with SCALE)
   };
   int32_t deg[kWarpRows];
@@ -139,8 +157,19 @@ __device__ __forceinline__ void copies_landed() {
 __device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
 
+// acc + w * x: one fused multiply-add, or (RN) the product rounded before
+// the sum, as a plain w * x followed by an add rounds it.
+template <bool RN>
+__device__ __forceinline__ float madd(float acc, float w, float x) {
+  if constexpr (RN) {
+    return __fadd_rn(acc, __fmul_rn(w, x));
+  } else {
+    return acc + w * x;
+  }
+}
+
 // One lane's VEC columns: their raw bits, and their addition (add) or
-// multiply-addition (fma) into the float32 sums.
+// multiply-addition (fma, RN as madd) into the float32 sums.
 template <typename T, int VEC>
 struct Lane;
 
@@ -153,11 +182,12 @@ struct Lane<float, 4> {
     acc[2] += __uint_as_float(x.z);
     acc[3] += __uint_as_float(x.w);
   }
+  template <bool RN = false>
   static __device__ __forceinline__ void fma(Raw x, float w, float* acc) {
-    acc[0] += w * __uint_as_float(x.x);
-    acc[1] += w * __uint_as_float(x.y);
-    acc[2] += w * __uint_as_float(x.z);
-    acc[3] += w * __uint_as_float(x.w);
+    acc[0] = madd<RN>(acc[0], w, __uint_as_float(x.x));
+    acc[1] = madd<RN>(acc[1], w, __uint_as_float(x.y));
+    acc[2] = madd<RN>(acc[2], w, __uint_as_float(x.z));
+    acc[3] = madd<RN>(acc[3], w, __uint_as_float(x.w));
   }
 };
 
@@ -165,8 +195,9 @@ template <>
 struct Lane<float, 1> {
   using Raw = uint32_t;
   static __device__ __forceinline__ void add(Raw x, float* acc) { acc[0] += __uint_as_float(x); }
+  template <bool RN = false>
   static __device__ __forceinline__ void fma(Raw x, float w, float* acc) {
-    acc[0] += w * __uint_as_float(x);
+    acc[0] = madd<RN>(acc[0], w, __uint_as_float(x));
   }
 };
 
@@ -181,12 +212,13 @@ struct Lane<__nv_bfloat16, 8> {
       acc[2 * i + 1] += bf16_hi(h[i]);
     }
   }
+  template <bool RN = false>
   static __device__ __forceinline__ void fma(Raw x, float w, float* acc) {
     const uint32_t h[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      acc[2 * i] += w * bf16_lo(h[i]);
-      acc[2 * i + 1] += w * bf16_hi(h[i]);
+      acc[2 * i] = madd<RN>(acc[2 * i], w, bf16_lo(h[i]));
+      acc[2 * i + 1] = madd<RN>(acc[2 * i + 1], w, bf16_hi(h[i]));
     }
   }
 };
@@ -197,8 +229,9 @@ struct Lane<__nv_bfloat16, 1> {
   static __device__ __forceinline__ void add(Raw x, float* acc) {
     acc[0] += __uint_as_float(static_cast<uint32_t>(x) << 16);
   }
+  template <bool RN = false>
   static __device__ __forceinline__ void fma(Raw x, float w, float* acc) {
-    acc[0] += w * __uint_as_float(static_cast<uint32_t>(x) << 16);
+    acc[0] = madd<RN>(acc[0], w, __uint_as_float(static_cast<uint32_t>(x) << 16));
   }
 };
 
@@ -213,12 +246,13 @@ __device__ __forceinline__ void add_term(typename Lane<T, VEC>::Raw x, const flo
   if constexpr (WT == Weights::kUnit) {
     Lane<T, VEC>::add(x, acc);
   } else {
-    Lane<T, VEC>::fma(x, rw[j], acc);
+    Lane<T, VEC>::template fma<WT == Weights::kSample>(x, rw[j], acc);
   }
 }
 
 // Adds d slots of one row to acc, in order; rn / rw are the row's staged
-// indices and weights (rw unread under kUnit).  A slot whose weight is 0
+// indices and weights (rw unread under kUnit; under kSample, where the band
+// spans samples, the lane's own weights in global memory).  A slot whose weight is 0
 // in the select mode is neither read nor summed.
 template <typename T, int VEC, Weights WT>
 __device__ __forceinline__ void sum_row(float* acc, const T* __restrict__ feats, int64_t w,
@@ -295,7 +329,8 @@ __device__ __forceinline__ void store_stream(float* o, const float* acc) {
   }
 }
 
-// The walk.  w_slot is null under kUnit, post_scale null unless SCALE.
+// The walk.  w_slot is null under kUnit (w_bnk [B, N, K] under kSample),
+// post_scale null unless SCALE.
 template <typename T, int VEC, Weights WT, bool SCALE>
 __global__ void __launch_bounds__(kThreads)
 ell_band_kernel(const T* __restrict__ feats, const int32_t* __restrict__ nbr,
@@ -340,6 +375,8 @@ ell_band_kernel(const T* __restrict__ feats, const int32_t* __restrict__ nbr,
     if (lane == 0) next = atomicAdd(counter, 1);
     const int64_t c0 = item / chunks * band;  // the band's first column
     const int64_t v0 = item % chunks * rows;  // the chunk's first row
+    // kSample: where the staged weights start, the slice of sample c0 / F
+    const int64_t wbase = WT == Weights::kSample ? c0 / f * n * k : 0;
     const int nrows = static_cast<int>(n - v0 < rows ? n - v0 : rows);
     int maxdeg = 0;
     for (int r = lane; r < nrows; r += 32) {
@@ -355,12 +392,14 @@ ell_band_kernel(const T* __restrict__ feats, const int32_t* __restrict__ nbr,
     __syncwarp();
     const int64_t col = c0 + lcol;
     const bool on = lrow < per_pass && col < w;
-    // SCALE: where the band lies in one sample (as at the production shape)
-    // the lanes take their rows' staged scales; where it spans several
-    // (F < band) each lane reads post_scale[v0 + r, col / F]
+    // SCALE and kSample: where the band lies in one sample (as at the
+    // production shape) the lanes take their rows' staged scales or
+    // weights; where it spans several (F < band) each lane reads its own,
+    // post_scale[v0 + r, col / F] or w_bnk[col / F, v0 + r, ..]
     // (VEC > 1 only where F % VEC == 0: the lane's columns lie in one sample)
     const bool staged = c0 / f == (min(c0 + band, w) - 1) / f;
     const float* ps = SCALE ? post_scale + v0 * samples + col / f : nullptr;
+    const float* lw = WT == Weights::kSample ? w_slot + col / f * n * k + v0 * k : nullptr;
 
     // slot tiles: one when every row's valid prefix fits (kt >= deg); a
     // later tile adds to the sums the earlier one stored (the same lane's row)
@@ -375,7 +414,7 @@ ell_band_kernel(const T* __restrict__ feats, const int32_t* __restrict__ nbr,
         const int j = j0 + (i - r * kt);
         if (i < nrows * kt && j < sm.deg[r]) {
           pn[t] = __ldg(nbr + (v0 + r) * k + j);
-          if constexpr (WT != Weights::kUnit) pw[t] = __ldg(w_slot + (v0 + r) * k + j);
+          if constexpr (WT != Weights::kUnit) pw[t] = __ldg(w_slot + wbase + (v0 + r) * k + j);
         }
       }
 #pragma unroll
@@ -402,8 +441,13 @@ ell_band_kernel(const T* __restrict__ feats, const int32_t* __restrict__ nbr,
           float* o = out + (v0 + r) * w + col;
 #pragma unroll
           for (int i = 0; i < VEC; ++i) acc[i] = j0 == 0 ? 0.0f : o[i];
-          sum_row<T, VEC, WT>(acc, feats, w, col, sm.nbr + r * kt, sm.w + r * kt, d, sm.gather,
-                              lane);
+          if (WT == Weights::kSample && !staged) {
+            sum_row<T, VEC, WT>(acc, feats, w, col, sm.nbr + r * kt, lw + r * k + j0, d,
+                                sm.gather, lane);
+          } else {
+            sum_row<T, VEC, WT>(acc, feats, w, col, sm.nbr + r * kt, sm.w + r * kt, d,
+                                sm.gather, lane);
+          }
           if constexpr (SCALE) {
             if (j0 + kt >= dr) {  // the row's last tile: its sum is whole
               const float sc =
@@ -431,7 +475,7 @@ cudaError_t launch_band(const void* feats, const void* nbr, const void* deg, con
                         cudaStream_t stream) {
   if (band < VEC || band % VEC || band / VEC > 32) return cudaErrorInvalidValue;
   if (rows < 1 || rows > kWarpRows) return cudaErrorInvalidValue;
-  if (SCALE && (f < 1 || w % f)) return cudaErrorInvalidValue;
+  if ((SCALE || WT == Weights::kSample) && (f < 1 || w % f)) return cudaErrorInvalidValue;
   const int64_t items = (n + rows - 1) / rows * ((w + band - 1) / band);
   // every warp takes one number past the last item
   if (grid < 1 || items + 2LL * grid * kWarps > 0x7fffffffLL) return cudaErrorInvalidConfiguration;

@@ -32,6 +32,9 @@
 // a band-major, L2-resident walk over 64-column bands of the source rows,
 // whose design, band and guarantees that header describes.  This file adds
 // the weight policy (kStatic, kSelect) and the per-sample schedule below.
+// Kernel 2.9 (spmm_cuda.spmm_ell_all_slots, the ELL prototype of the JAX
+// package's benchmarks) is the static mode on a table whose every slot is
+// valid, counted apart.
 // Swept on the H100 (scripts/ell_band_sweep.py): bands of 32 and 48 columns
 // were slower than 64 (more items and index reads per byte gathered), and an
 // L2 evict_last policy on the gathers gained nothing once they went through
@@ -40,8 +43,8 @@
 // The per-sample mode keeps the simple design (spmm_ell_row_kernel): a band
 // lies in one sample, so the walk would read one weight per 32-byte sector
 // of [N, K, B] (32 MB a band, 3.2 GB a call); it measured slower there than
-// this schedule, which reads 8 samples' weights per sector, and a
-// sample-major copy of the weights cost more than it saved.
+// this schedule, which reads 8 samples' weights per sector.  (Kernel 2.4
+// walks sample-major weights [B, N, K], batched_gather_sum.cu.)
 //
 // Both schedules: slot k >= deg[v] is never read (NaN in source rows that
 // only invalid slots name cannot reach the sum, rows of degree 0 come out as

@@ -63,19 +63,22 @@ def weighted_gather_sum_batched(
     b: int,
     *,
     table,
-    w_slot: Optional[torch.Tensor] = None,  # [N, K, B] slot-layout weights
+    w_slot: Optional[torch.Tensor] = None,    # [N, K, B] slot-layout weights
+    w_sample: Optional[torch.Tensor] = None,  # [B, N, K] sample-major weights
 ) -> torch.Tensor:              # [N, B*F] float32
     """Batched aggregation: ``out[v] = sum over the table's in-edges e of
     w[e, :] * feats[snd_e]``, the per-sample weight broadcast over each
     sample's F block.
 
     ``edge_weight_eb`` rows are indexed by the table's ``eid`` (original
-    edge ids).  Callers that already hold slot-layout weights (the engine's
-    coefficient tensor) pass ``w_slot``, and ``edge_weight_eb`` may then be
-    None.  The table carries no self-loops (``build_neighbor_table`` drops
+    edge ids).  Callers that already hold the weights per slot pass them
+    instead, and ``edge_weight_eb`` may then be None: the engine's
+    coefficient tensor as it is made, sample-major, as ``w_sample`` (the
+    kernel reads it without a copy), or ``w_slot`` in the JAX entry's
+    layout.  The table carries no self-loops (``build_neighbor_table`` drops
     them).
     """
-    return batched_gather_sum(table, edge_weight_eb, feats_bc, b, w_slot=w_slot)
+    return batched_gather_sum(table, edge_weight_eb, feats_bc, b, w_slot=w_slot, w_sample=w_sample)
 
 
 def gather_sum_batched_separable(

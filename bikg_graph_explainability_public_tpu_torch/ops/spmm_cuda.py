@@ -5,16 +5,19 @@ PyTorch versions and :func:`spmm_ell`, the entry that routes by schedule.
   static separable weights with a fused output scale, the node-mask layers
   >= 2.
 * :func:`batched_gather_sum` (``csrc/batched_gather_sum.cu``, kernel 2.4):
-  per-slot, per-sample weights ``w_slot [N, K, B]``, the edge-mask layers
-  >= 2.
+  per-slot, per-sample weights, sample-major ``w_sample [B, N, K]`` (the
+  edge-mask layers >= 2) or slot-major ``w_slot [N, K, B]`` (the JAX
+  signature, through :func:`slot_transpose`).
 * :func:`ell_valid_sum` (``ell_valid_sum`` of ``csrc/gather_sum_static.cu``,
   kernels 2.5 and 2.8): the valid-prefix sum, 2.3 without the scale.
 * :func:`spmm_ell_weighted` (``csrc/spmm_ell_weighted.cu``, kernels 2.6 and
   2.7): slot weights, static ``[N, K]`` (multiplied) or ``[N, K, wb]`` with
   ``wb`` in ``{1, B}`` (selected: a slot of weight 0 adds nothing).
+* :func:`spmm_ell_all_slots` (kernel 2.9, the ELL prototype of the JAX
+  package's benchmarks): every slot summed, on 2.6's static walk.
 
-Kernels 2.3, 2.5 and 2.8, and 2.6/2.7 with one weight per slot, run one
-band-major walk whose column band of the source rows stays in L2
+Kernels 2.3, 2.4, 2.5 and 2.8, and 2.6/2.7 with one weight per slot, run
+one band-major walk whose column band of the source rows stays in L2
 (``csrc/ell_band.cuh``; :func:`band_plan` picks the band and the persistent
 grid).
 
@@ -34,13 +37,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from .cuda_build import Kernel
+from .ell import NeighborTable
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# (feats, dtype, nbr, deg, w_slot, out, n, k, w, f, vec, stream)
-_ARGS = [_p, _i, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _p]
-# (feats, dtype, nbr, deg, post_scale, out, n, k, w, f, band, rows, grid,
-#  counter, vec, stream)
+# (feats, dtype, nbr, deg, post_scale or w_bnk, out, n, k, w, f, band, rows,
+#  grid, counter, vec, stream)
 _STATIC_ARGS = [_p, _i, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _i, _i, _p, _i, _p]
+# (w_slot, w_bnk, rows, b, stream)
+_TRANSPOSE_ARGS = [_p, _p, _i64, _i64, _p]
 # (feats, dtype, nbr, deg, out, n, k, w, f, band, rows, grid, counter, vec,
 #  stream)
 _VALID_ARGS = [_p, _i, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _i, _i, _p, _i, _p]
@@ -52,8 +56,10 @@ _WEIGHTED_ARGS = [
 
 #: kernel 2.3, the static separable gather-sum
 GATHER_SUM_STATIC = Kernel("gather_sum_static.cu", "gather_sum_static", _STATIC_ARGS)
-#: kernel 2.4, the weighted gather-sum
-BATCHED_GATHER_SUM = Kernel("batched_gather_sum.cu", "batched_gather_sum", _ARGS)
+#: kernel 2.4, the weighted gather-sum on sample-major weights
+BATCHED_GATHER_SUM = Kernel("batched_gather_sum.cu", "batched_gather_sum", _STATIC_ARGS)
+#: kernel 2.4's slot-major entry: the [N, K, B] -> [B, N, K] weight copy
+SLOT_TRANSPOSE = Kernel("batched_gather_sum.cu", "slot_transpose", _TRANSPOSE_ARGS)
 #: kernels 2.5 (``sched="v6"``) and 2.8 (``"v5"``): one CUDA function,
 #: counted per schedule
 ELL_VALID_SUM = {
@@ -65,6 +71,8 @@ SPMM_ELL_WEIGHTED = {
     s: Kernel("spmm_ell_weighted.cu", "spmm_ell_weighted", _WEIGHTED_ARGS)
     for s in ("v3", "fused")
 }
+#: kernel 2.9, the all-slot sum: 2.6's static walk, counted apart
+SPMM_ELL_ALL_SLOTS = Kernel("spmm_ell_weighted.cu", "spmm_ell_weighted", _WEIGHTED_ARGS)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -110,24 +118,6 @@ def _prepare(kernel: Kernel, table, feats: torch.Tensor, weights):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{kernel.symbol} needs contiguous tensors")
     return torch.empty((table.nbr.shape[0], feats.shape[1]), dtype=torch.float32, device=feats.device)
-
-
-def _launch(kernel: Kernel, table, feats: torch.Tensor, b: int, w_slot: torch.Tensor):
-    """The launch of kernel 2.4 (its row schedule)."""
-    out = _prepare(kernel, table, feats, (w_slot,))
-    n, k = table.nbr.shape
-    w = feats.shape[1]
-    f = w // b
-    if n == 0 or w == 0:
-        return out
-    vec = _vec(feats, out, f)
-    with torch.cuda.device(feats.device):
-        kernel.launch(
-            feats.data_ptr(), _DTYPE_CODE[feats.dtype], table.nbr.data_ptr(), table.deg.data_ptr(),
-            w_slot.data_ptr(), out.data_ptr(), n, k, w, f, vec,
-            torch.cuda.current_stream(feats.device).cuda_stream,
-        )
-    return out
 
 
 def gather_sum_static_plain(
@@ -190,7 +180,8 @@ def slot_weights(table, edge_weight: torch.Tensor) -> torch.Tensor:
 
 def batched_gather_sum_plain(table, feats: torch.Tensor, b: int, w_slot: torch.Tensor) -> torch.Tensor:
     """Kernel 2.4's function in plain PyTorch: a loop over the K slots with
-    a select on ``k < deg``; each valid slot adds ``w * x``."""
+    a select on ``k < deg``; each valid slot adds ``w * x``.  ``w_slot``
+    ``[N, K, B]``, or sample-major weights as ``w_sample.permute(1, 2, 0)``."""
     n, k = table.nbr.shape
     w = feats.shape[1]
     f = w // b
@@ -204,38 +195,81 @@ def batched_gather_sum_plain(table, feats: torch.Tensor, b: int, w_slot: torch.T
     return out.view(n, w)
 
 
+def slot_transpose_plain(w_slot: torch.Tensor) -> torch.Tensor:
+    """:func:`slot_transpose` in plain PyTorch."""
+    return w_slot.permute(2, 0, 1).contiguous()
+
+
+def slot_transpose(w_slot: torch.Tensor) -> torch.Tensor:
+    """Slot-major weights ``[N, K, B]`` float32 to sample-major ``[B, N, K]``
+    (a copy).  On a CUDA tensor this launches the tiled transpose of
+    ``csrc/batched_gather_sum.cu`` (or raises); on a CPU tensor it runs
+    :func:`slot_transpose_plain`."""
+    if w_slot.dim() != 3 or w_slot.dtype != torch.float32:
+        raise ValueError(f"w_slot must be [N, K, B] float32, got {tuple(w_slot.shape)} {w_slot.dtype}")
+    if w_slot.device.type == "cpu":
+        return slot_transpose_plain(w_slot)
+    if w_slot.device.type != "cuda" or not w_slot.is_contiguous():
+        raise ValueError("slot_transpose needs a contiguous CUDA or CPU tensor")
+    n, k, b = w_slot.shape
+    out = torch.empty((b, n, k), dtype=torch.float32, device=w_slot.device)
+    if out.numel():
+        with torch.cuda.device(w_slot.device):
+            SLOT_TRANSPOSE.launch(w_slot.data_ptr(), out.data_ptr(), n * k, b,
+                                  torch.cuda.current_stream(w_slot.device).cuda_stream)
+    return out
+
+
 def batched_gather_sum(
     table,
     edge_weight: Optional[torch.Tensor],
     feats: torch.Tensor,
     b: int,
     w_slot: Optional[torch.Tensor] = None,
+    w_sample: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``out[v, s*F:(s+1)*F] = sum_{k < deg[v]} w_slot[v, k, s] *
+    """``out[v, s*F:(s+1)*F] = sum_{k < deg[v]} w[v, k, s] *
     feats[nbr[v, k], s*F:(s+1)*F]`` over a prefix-valid
     :class:`.ell.NeighborTable`; float32 ``[N, B*F]``.
 
-    ``w_slot`` ``[N, K, B]`` float32: slot-layout weights (the engines'
-    coefficient tensors).  Without it they are built from ``edge_weight``
-    ``[E, B]`` as :func:`slot_weights` does.  On a CUDA tensor this launches
-    kernel 2.4 (or raises); on a CPU tensor it runs
+    The weights, float32, zero on invalid slots, in one of three forms:
+
+    * ``w_sample`` ``[B, N, K]``, contiguous: sample-major, as the engine's
+      coefficient tensor is made; the kernel reads it as it is;
+    * ``w_slot`` ``[N, K, B]``: slot-major, the JAX entry's layout; on the
+      card :func:`slot_transpose` makes the sample-major copy first (at
+      ``b = 1`` the two layouts are one);
+    * neither: built from ``edge_weight`` ``[E, B]`` as :func:`slot_weights`
+      does.
+
+    On a CUDA tensor this launches kernel 2.4, the band walk over
+    sample-major weights (or raises); on a CPU tensor it runs
     :func:`batched_gather_sum_plain`.  Weights shared by all samples,
     ``w_slot [N, K, 1]`` (or ``edge_weight [E, 1]``) with ``b > 1``, go to
     :func:`spmm_ell_weighted` (kernel 2.6), as the JAX entry falls back to
     its v3 schedule for them; a slot of weight 0 then adds nothing.
     """
     _check(table, feats, b)
+    n, k = table.nbr.shape
+    if w_sample is not None:
+        if w_slot is not None:
+            raise ValueError("pass w_slot or w_sample, not both")
+        _check_f32("w_sample", w_sample, (b, n, k), feats)
+        if feats.device.type == "cpu":
+            return batched_gather_sum_plain(table, feats, b, w_sample.permute(1, 2, 0))
+        return _static_launch(BATCHED_GATHER_SUM, table, feats, b, w_sample)
     if w_slot is None:
         if edge_weight is None:
-            raise ValueError("pass edge_weight or w_slot")
+            raise ValueError("pass edge_weight, w_slot or w_sample")
         w_slot = slot_weights(table, edge_weight.float())
-    n, k = table.nbr.shape
     if b > 1 and w_slot.dim() == 3 and w_slot.shape[2] == 1:
         return spmm_ell_weighted(table, w_slot, feats, b)
     _check_f32("w_slot", w_slot, (n, k, b), feats)
     if feats.device.type == "cpu":
         return batched_gather_sum_plain(table, feats, b, w_slot)
-    return _launch(BATCHED_GATHER_SUM, table, feats, b, w_slot)
+    w_slot = w_slot.contiguous()
+    w_sample = w_slot.view(1, n, k) if b == 1 else slot_transpose(w_slot)
+    return _static_launch(BATCHED_GATHER_SUM, table, feats, b, w_sample)
 
 
 def spmm_ell_weighted_plain(table, w_slot: torch.Tensor, feats: torch.Tensor, b: int) -> torch.Tensor:
@@ -354,15 +388,16 @@ def _plan(feats: torch.Tensor, out: torch.Tensor, b: int, band, passes):
     return vec, band_plan(n, w, feats.element_size(), vec, sms, band, passes)
 
 
-def _static_args(kernel: Kernel, table, feats, out, b, post_scale, vec, plan, counter,
+def _static_args(kernel: Kernel, table, feats, out, b, operand, vec, plan, counter,
                  stream) -> tuple:
     """The C function's arguments, in the order of ``kernel.argtypes``:
-    :data:`_STATIC_ARGS` (``gather_sum_static``; a ``post_scale`` of None
-    passes a null pointer) or :data:`_VALID_ARGS` (``ell_valid_sum``, which
-    takes no scale)."""
+    :data:`_STATIC_ARGS` (``gather_sum_static``, whose ``operand`` is
+    ``post_scale`` or None for a null pointer; ``batched_gather_sum``, whose
+    ``operand`` is ``w_bnk``) or :data:`_VALID_ARGS` (``ell_valid_sum``,
+    which takes neither)."""
     n, k = table.nbr.shape
     w = feats.shape[1]
-    scale = (None if post_scale is None else post_scale.data_ptr(),)
+    scale = (None if operand is None else operand.data_ptr(),)
     return (
         feats.data_ptr(), _DTYPE_CODE[feats.dtype], table.nbr.data_ptr(), table.deg.data_ptr(),
         *(scale if kernel.argtypes is _STATIC_ARGS else ()),
@@ -370,12 +405,12 @@ def _static_args(kernel: Kernel, table, feats, out, b, post_scale, vec, plan, co
     )
 
 
-def _static_launch(kernel: Kernel, table, feats, b: int, post_scale=None, band=None,
+def _static_launch(kernel: Kernel, table, feats, b: int, operand=None, band=None,
                    passes=BAND_PASSES):
-    """Launch kernel 2.3 (``post_scale`` or None), 2.5 or 2.8 on CUDA
-    tensors: the band walk; ``band`` and ``passes`` override
-    :func:`band_plan`'s choice."""
-    out = _prepare(kernel, table, feats, (post_scale,))
+    """Launch kernel 2.3 (``operand``: ``post_scale`` or None), 2.4
+    (``w_bnk``), 2.5 or 2.8 on CUDA tensors: the band walk; ``band`` and
+    ``passes`` override :func:`band_plan`'s choice."""
+    out = _prepare(kernel, table, feats, (operand,))
     n, w = out.shape
     if n == 0 or w == 0:
         return out
@@ -384,7 +419,7 @@ def _static_launch(kernel: Kernel, table, feats, b: int, post_scale=None, band=N
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         kernel.launch(*_static_args(
-            kernel, table, feats, out, b, post_scale, vec, plan, counter.data_ptr(),
+            kernel, table, feats, out, b, operand, vec, plan, counter.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         ))
     return out
@@ -434,6 +469,42 @@ def spmm_ell_weighted(
     if feats.device.type == "cpu":
         return spmm_ell_weighted_plain(table, w_slot, feats, b)
     return _weighted_launch(SPMM_ELL_WEIGHTED[sched], table, w_slot, feats, b)
+
+
+def all_slots_table(nbr: torch.Tensor):
+    """A :class:`.ell.NeighborTable` over ``nbr [N, K]`` int32 whose every
+    slot is valid (``deg = K`` on every row), for :func:`spmm_ell_all_slots`.
+    Its degrees are checked on the host at first use, so build it once for
+    many calls on the same ``nbr``."""
+    n, k = nbr.shape
+    ones = torch.ones((), dtype=torch.float32, device=nbr.device).expand(n, k)
+    zeros = torch.zeros((), dtype=torch.int32, device=nbr.device).expand(n, k)
+    return NeighborTable(nbr=nbr, valid=ones, eid=zeros)
+
+
+def spmm_ell_all_slots(
+    nbr: torch.Tensor, wk: torch.Tensor, x: torch.Tensor, *, table=None
+) -> torch.Tensor:
+    """``out[v] = sum over all K slots of wk[v, k] * x[nbr[v, k]]``, float32
+    ``[N, F]``: the function of the JAX package's ELL prototype
+    (``benchmarks/exp_spmm_pallas_proto.py::make_pallas_ell``), whose padded
+    slots carry ``nbr = 0, wk = 0`` and are summed like the others.
+
+    ``nbr [N, K]`` int32, ``wk [N, K]`` float32, ``x [N_src, F]`` float32 or
+    bfloat16; ``table`` is :func:`all_slots_table` of ``nbr`` (built here
+    when None).  On a CUDA tensor this launches kernel 2.6's static walk,
+    counted as kernel 2.9 (or raises); on a CPU tensor it runs
+    :func:`spmm_ell_weighted_plain`.
+    """
+    if table is None:
+        table = all_slots_table(nbr)
+    elif table.nbr is not nbr:
+        raise ValueError("table is not all_slots_table(nbr)")
+    _check(table, x, 1)
+    _check_f32("wk", wk, tuple(nbr.shape), x)
+    if x.device.type == "cpu":
+        return spmm_ell_weighted_plain(table, wk, x, 1)
+    return _weighted_launch(SPMM_ELL_ALL_SLOTS, table, wk, x, 1)
 
 
 #: the schedules of the JAX package's ``spmm_ell_pallas``

@@ -17,10 +17,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    time, the plain version's, a library call's and the least time the card
    could take: 2.3 and 2.4 (the ELL gather-sums) at the production shape
    (100k nodes / 1M edges, B=50, F=128, float32) and in the edge cases
-   (2.3, 2.5 and 2.8 run the band walk of ``ops/csrc/ell_band.cuh``, as
-   2.6/2.7 do with one weight per slot; the phase counts the production
+   (2.3, 2.4, 2.5 and 2.8 run the band walk of ``ops/csrc/ell_band.cuh``,
+   as 2.6/2.7 do with one weight per slot; the phase counts the production
    rows whose degree exceeds the walk's slot tile, which 2.3 scales in
-   their last tile, and fails if there are none);
+   their last tile, and fails if there are none; 2.4 is held bit for bit
+   through both of its weight layouts, sample-major as the engine makes
+   them and slot-major through its tiled transpose, and timed in turns
+   with the transpose alone and the engine's former permute);
    2.1 (with its operand launch) and 2.2 (the fused dense layers) at the
    bench's subgraph shape (2048 nodes / 16384 edges, B=250, C=128), each
    launch alone too, beside both bounds (A's nonzeros and the dense
@@ -28,14 +31,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    seven edge cases (N = 37 to 4096);
    then the ELL SpMM entry ``spmm_ell`` and its schedule routes (the
    ladder: v7 on 2.3 and 2.4, v6 and v5 on 2.5 and 2.8, v3 and fused on 2.6
-   and 2.7, with static, broadcast and per-sample weights; all but 2.4 and
-   the per-sample mode on the band walk), the broadcast
+   and 2.7, with static, broadcast and per-sample weights; all but 2.6/2.7's
+   per-sample mode on the band walk), the broadcast
    route of ``batched_gather_sum`` and the table route of
    ``weighted_gather_sum``, each route counted, held against its plain
    version and timed at the production shape; the L2 probe (kernel 2.6 on
    features 32, 64 and 128 columns wide, so that one band's gathers are
    served from L2); then every route held in the edge cases and in those of
    the band walk (a ragged last band, W narrower than a band, F = 3);
+   then kernel 2.9 (``spmm_ell_all_slots``, the ELL prototype of the JAX
+   package's benchmarks, on 2.6's static walk) at the prototype's run shape
+   (100k / 1M, F = 128), counted, held against its plain version and the
+   prototype's segment sum, and timed beside ``torch.sparse.mm``;
 4. the node path: ``Explainer._explain`` (the arrays behind
    ``Explainer.run``) on ``node_prediction`` for the repo's trained 36-node
    fixture (Shapley and community mode) and for GCN-128x2 on a 20k-node /
@@ -50,7 +57,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    through the plain version;
 7. the unrestricted ELL edge forward: 1000 edge masks through
    ``FastBatchedGCN(restrict=False)`` on the 100k / 1M graph, counting
-   kernel 2.4's launches, timed, profiled and compared as in 6;
+   kernel 2.4's launches (the walk on the engine's sample-major
+   coefficients, no slot transpose), timed, profiled and compared as in 6;
 8. the fused dense forward: ``FastBatchedGCN(backend="pallas")`` against
    ``backend="xla"`` on the 2048 / 16384 graph, 1000 masks, counting the
    launches of kernels 2.1 (and its operand launch) and 2.2, and one
@@ -247,6 +255,7 @@ def all_kernels():
     return {
         "gather_sum_static": spmm_cuda.GATHER_SUM_STATIC,
         "batched_gather_sum": spmm_cuda.BATCHED_GATHER_SUM,
+        "batched_gather_sum.transpose": spmm_cuda.SLOT_TRANSPOSE,
         "masked_gcn_layer": gcn_layer_cuda.MASKED_GCN_LAYER,
         "masked_gcn_layer.operand": gcn_layer_cuda.OPERAND,
         "masked_gcn_layer_batched": gcn_layer_cuda.MASKED_GCN_LAYER_BATCHED,
@@ -255,6 +264,7 @@ def all_kernels():
         "ell_valid_sum.v5": spmm_cuda.ELL_VALID_SUM["v5"],
         "spmm_ell_weighted.v3": spmm_cuda.SPMM_ELL_WEIGHTED["v3"],
         "spmm_ell_weighted.fused": spmm_cuda.SPMM_ELL_WEIGHTED["fused"],
+        "spmm_ell_all_slots": spmm_cuda.SPMM_ELL_ALL_SLOTS,
     }
 
 
@@ -441,57 +451,120 @@ def phase_kernel(dev):
     }, graph, table
 
 
-def check_weighted_case(table, b, f, dtype, seed, label):
-    """Kernel 2.4 against plain on one input, with NaN in the source rows
-    that no valid slot names and a third of the weights exactly zero (the
-    masked edges); returns (max_abs_err, feats, w_slot)."""
+def weighted_inputs(table, b, f, dtype, seed):
+    """Kernel 2.4's inputs: features with NaN in the source rows that no
+    valid slot names and in one named row ``r0``; sample-major weights
+    ``w_bnk [B, N, K]``, a third of them exactly 0 (the masked edges) and
+    every slot that names ``r0`` weighing 0, so that 2.4's multiply keeps
+    0 * NaN on the rows that name it.  Returns (feats, w_bnk, the rows that
+    name r0, the NaN rows that no valid slot names)."""
     import torch
-    from bikg_graph_explainability_public_tpu_torch.ops.spmm_cuda import (
-        batched_gather_sum, batched_gather_sum_plain,
-    )
 
     dev = table.nbr.device
     n, k = table.nbr.shape
+    valid = table.valid > 0
     gen = torch.Generator(device=dev).manual_seed(seed)
     feats = torch.randn((n, b * f), generator=gen, device=dev).to(dtype)
     used = torch.zeros(n, dtype=torch.bool, device=dev)
-    used[table.nbr[table.valid > 0]] = True
-    feats[~used] = float("nan")  # rows no valid slot names
-    w_slot = torch.randn((n, k, b), generator=gen, device=dev)
-    w_slot[torch.rand((n, k, b), generator=gen, device=dev) < 1 / 3] = 0.0
-    w_slot *= table.valid[:, :, None]
-    got = batched_gather_sum(table, None, feats, b, w_slot=w_slot)
-    want = batched_gather_sum_plain(table, feats, b, w_slot)
-    # the kernel's fused multiply-adds round once per term, the plain
-    # version's products and sums twice: within the same tolerance
-    err = hold_gather_sum(table, got, want, label)
-    log(
-        f"kernel case {label}: N={n} K={k} b={b} F={f} {str(dtype)[6:]} "
-        f"deg0_rows={int((table.deg == 0).sum())} nan_rows={int((~used).sum())} "
-        f"zero_weights={int(((w_slot == 0) & (table.valid[:, :, None] > 0)).sum())} "
-        f"max_abs_err={err:.3e} ok"
-    )
-    return err, feats, w_slot
+    used[table.nbr[valid]] = True
+    feats[~used] = float("nan")
+    r0 = int(table.nbr[valid][0])
+    feats[r0] = float("nan")
+    names_r0 = (table.nbr == r0) & valid
+    w_bnk = torch.randn((b, n, k), generator=gen, device=dev)
+    w_bnk[torch.rand((b, n, k), generator=gen, device=dev) < 1 / 3] = 0.0
+    w_bnk[:, names_r0] = 0.0
+    w_bnk *= table.valid
+    return feats, w_bnk.contiguous(), names_r0.any(dim=1), int((~used).sum())
 
 
-def phase_kernel_weighted(dev, table) -> dict:
-    """Kernel 2.4 at the production shape on 2.3's table, then the edge
-    cases; returns the kernel's record."""
+def hold_exact(table, got, want, named_r0, label) -> None:
+    """Kernel 2.4 against its plain version: bit for bit (its products are
+    rounded before the sum, as the plain version's, and slots are summed in
+    the same order), NaN exactly on the rows that name the NaN row through
+    a slot of weight 0, exact zeros on rows of degree 0."""
     import torch
-    from bikg_graph_explainability_public_tpu_torch.ops.spmm_cuda import (
-        batched_gather_sum, batched_gather_sum_plain,
-    )
 
-    err, feats, w_slot = check_weighted_case(
-        table, BIG_B, HIDDEN, torch.float32, 1, "2.4 production"
+    torch.cuda.synchronize()
+    nan = torch.isnan(got)
+    if not torch.equal(nan, torch.isnan(want)):
+        raise AssertionError(f"{label}: NaN entries differ from the plain version's")
+    if not torch.equal(nan.any(dim=1), named_r0):
+        raise AssertionError(f"{label}: 0 * NaN is not kept exactly on the rows that name the NaN row")
+    if torch.isinf(got).any():
+        raise AssertionError(f"{label}: infinite output")
+    deg0 = table.deg == 0
+    if deg0.any() and got[deg0].abs().max().item() != 0.0:
+        raise AssertionError(f"{label}: rows of degree 0 are not exact zeros")
+    if not torch.equal(got[~nan], want[~nan]):
+        raise AssertionError(
+            f"{label}: kernel differs from plain, max abs err "
+            f"{(got[~nan] - want[~nan]).abs().max().item():.3e} (bit for bit expected)"
+        )
+
+
+def check_weighted_case(table, b, f, dtype, seed, label):
+    """Kernel 2.4 against its plain version on one input, through both
+    entries: the sample-major weights as they are (``w_sample``) and their
+    slot-major copy (``w_slot``, transposed on the card first), bit for bit.
+    Returns (feats, w_bnk)."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
+
+    n, k = table.nbr.shape
+    feats, w_bnk, named_r0, nan_rows = weighted_inputs(table, b, f, dtype, seed)
+    w_slot = w_bnk.permute(1, 2, 0).contiguous()
+    want = sc.batched_gather_sum_plain(table, feats, b, w_slot)
+    got = sc.batched_gather_sum(table, None, feats, b, w_sample=w_bnk)
+    hold_exact(table, got, want, named_r0, f"{label} w_sample")
+    if not torch.equal(sc.slot_transpose(w_slot), w_bnk):
+        raise AssertionError(f"{label}: slot_transpose differs from the sample-major weights")
+    got_slot = sc.batched_gather_sum(table, None, feats, b, w_slot=w_slot)
+    hold_exact(table, got_slot, want, named_r0, f"{label} w_slot")
+    _, plan = sc._plan(feats, got, b, None, sc.BAND_PASSES)
+    w = b * f
+    spans = sum(c // f != (min(c + plan.band, w) - 1) // f for c in range(0, w, plan.band))
+    log(
+        f"kernel case {label}: N={n} K={k} b={b} F={f} W={w} {str(dtype)[6:]} "
+        f"deg0_rows={int((table.deg == 0).sum())} nan_rows={nan_rows} "
+        f"rows_keeping_0*nan={int(named_r0.sum())} "
+        f"zero_weights={int(((w_bnk == 0) & (table.valid > 0)).sum())} band={plan.band} "
+        f"bands_spanning_samples={spans} of {-(-w // plan.band)}; both entries bit for bit ok"
     )
-    ms = cuda_ms(lambda: batched_gather_sum(table, None, feats, BIG_B, w_slot=w_slot), 20)
-    plain_ms = cuda_ms(lambda: batched_gather_sum_plain(table, feats, BIG_B, w_slot), 3)
-    # the engine's [B, N, K] -> [N, K, B] transpose of the coefficients
-    # that become the slot weights (outside the kernel)
-    coeff = w_slot.permute(2, 0, 1).contiguous()
-    transpose_ms = cuda_ms(lambda: coeff.permute(1, 2, 0).contiguous(), 10)
-    del coeff
+    return feats, w_bnk
+
+
+def in_turns(calls: dict, reps: int, rounds: int = 2) -> dict:
+    """{name: [ms of each round]}: ``cuda_ms`` of every call, the calls in
+    order, then reversed, and so on for ``rounds`` rounds (two versions are
+    compared only within one call, in turns)."""
+    names = list(calls)
+    ms = {name: [] for name in names}
+    for i in range(rounds):
+        for name in names[::-1] if i % 2 else names:
+            ms[name].append(cuda_ms(calls[name], reps))
+    return ms
+
+
+def phase_kernel_weighted(dev, table) -> tuple:
+    """Kernel 2.4 at the production shape on 2.3's table, both entries and
+    the slot transpose timed in turns with the engine's former permute, then
+    the edge cases; returns the records of 2.4 and of its slot transpose."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
+
+    feats, w_bnk = check_weighted_case(table, BIG_B, HIDDEN, torch.float32, 1, "2.4 production")
+    w_slot = w_bnk.permute(1, 2, 0).contiguous()
+    runs = in_turns({
+        "w_sample": lambda: sc.batched_gather_sum(table, None, feats, BIG_B, w_sample=w_bnk),
+        "w_slot": lambda: sc.batched_gather_sum(table, None, feats, BIG_B, w_slot=w_slot),
+        "transpose": lambda: sc.slot_transpose(w_slot),
+        # what the engine did to its coefficients before each chunk's two layers
+        "permute": lambda: w_bnk.permute(1, 2, 0).contiguous(),
+    }, 20)
+    ms = {name: sum(v) / len(v) for name, v in runs.items()}
+    plain_ms = cuda_ms(lambda: sc.batched_gather_sum_plain(table, feats, BIG_B, w_slot), 3)
+    transpose_plain_ms = cuda_ms(lambda: sc.slot_transpose_plain(w_slot), 10)
     deg = table.deg
     nbr, valid = table.nbr, table.valid > 0
     w = BIG_B * HIDDEN
@@ -504,14 +577,22 @@ def phase_kernel_weighted(dev, table) -> dict:
     bound_ms = max(bytes_min / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
     bound_by = "bytes" if bytes_min / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
     gather_bytes = (sum_deg + BIG_N) * w * 4 + sum_deg * (4 + BIG_B * 4)
+    tr_bytes = 2 * w_slot.numel() * 4  # read once, written once
     log(
-        f"kernel 2.4 timing at production shape: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"kernel 2.4 timing at production shape (in turns): w_sample (band walk) "
+        f"ms={ms['w_sample']:.4f}; w_slot (transpose + walk) ms={ms['w_slot']:.4f}; "
+        f"plain_ms={plain_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}, {bytes_min / 1e9:.3f} GB) "
         f"gather_bound_ms={gather_bytes / HBM_BYTES_PER_S * 1e3:.4f} ({gather_bytes / 1e9:.3f} GB) "
-        f"effective_gather_GBps={gather_bytes / ms / 1e6:.1f}; "
-        f"[B,N,K]->[N,K,B] transpose of the coefficients {transpose_ms:.4f} ms"
+        f"effective_gather_GBps={gather_bytes / ms['w_sample'] / 1e6:.1f}"
     )
-    del feats, w_slot
+    log(
+        f"slot transpose [N,K,B]->[B,N,K] ({tr_bytes / 2e6:.0f} MB): kernel ms={ms['transpose']:.4f} "
+        f"plain (permute(2,0,1).contiguous()) ms={transpose_plain_ms:.4f} "
+        f"bound_ms={tr_bytes / HBM_BYTES_PER_S * 1e3:.4f}; the engine's former "
+        f"[B,N,K]->[N,K,B] permute ms={ms['permute']:.4f}"
+    )
+    del feats, w_bnk, w_slot
 
     cases = [  # (b, K, F, dtype)
         (1, 8, 128, torch.float32),
@@ -524,28 +605,50 @@ def phase_kernel_weighted(dev, table) -> dict:
         (48, 16, 8, torch.bfloat16),
         (48, 32, 6, torch.float32),
         (48, 32, 8, torch.bfloat16),
+        # the band walk: a ragged last band (W = 140), W narrower than a
+        # band, the scalar path (F = 3), and bands that span samples where F
+        # is above the band but not a multiple of it (F = 96)
+        (7, 16, 20, torch.float32),
+        (7, 32, 20, torch.bfloat16),
+        (1, 32, 8, torch.float32),
+        (1, 16, 8, torch.bfloat16),
+        (48, 32, 3, torch.float32),
+        (48, 16, 3, torch.bfloat16),
+        (2, 32, 96, torch.float32),
+        (3, 16, 96, torch.bfloat16),
     ]
     for i, (b, k, f, dtype) in enumerate(cases):
         t = _table(5000, 5000 * k // 2, k, seed=30 + i, device=dev, dead_rows=300, dead_srcs=200)
-        case_err, _, _ = check_weighted_case(t, b, f, dtype, 200 + i, f"2.4 edge{i}")
-        err = max(err, case_err)
-    return {
-        "name": "batched_gather_sum",
-        "route": "cuda",
-        "source": f"{PKG}/ops/csrc/batched_gather_sum.cu",
-        "replaces": "bikg_graph_explainability_public_tpu/ops/spmm_pallas.py:1074",
-        "launches": None,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-        "library_note": "no PyTorch call takes per-slot, per-sample weights "
+        check_weighted_case(t, b, f, dtype, 200 + i, f"2.4 edge{i}")
+    common = {"route": "cuda", "source": f"{PKG}/ops/csrc/batched_gather_sum.cu", "launches": None,
+              "max_abs_err": 0.0}
+    rec = dict(
+        common,
+        name="batched_gather_sum",
+        replaces="bikg_graph_explainability_public_tpu/ops/spmm_pallas.py:1074",
+        ms=ms["w_sample"],
+        plain_ms=plain_ms,
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+        library_ms=None,
+        library_note="no PyTorch call takes per-slot, per-sample weights "
         "(torch.sparse.mm takes one weight per edge for all samples)",
-        "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
-        "transpose_ms": transpose_ms,
-    }
+        gather_bound_ms=gather_bytes / HBM_BYTES_PER_S * 1e3,
+        slot_major_ms=ms["w_slot"],
+        engine_permute_ms=ms["permute"],
+    )
+    rec_t = dict(
+        common,
+        name="batched_gather_sum.transpose",
+        replaces="bikg_graph_explainability_public_tpu/ops/spmm_pallas.py:1499",
+        ms=ms["transpose"],
+        plain_ms=transpose_plain_ms,
+        bound_ms=tr_bytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        library_ms=transpose_plain_ms,
+        library_note="w_slot.permute(2, 0, 1).contiguous(), which is also the plain version",
+    )
+    return rec, rec_t
 
 
 def _dense_case(dev, n, e, b, c, c_in, seed):
@@ -1007,6 +1110,8 @@ def phase_ell_edge_forward(dev) -> int:
     out = run()
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
+    # the sample-major walk on the engine's coefficients as made: no slot
+    # transpose, no [N, K, B] copy
     expect_counts(read_counts(), {"batched_gather_sum": expected}, "ELL edge forward")
     if out.shape != (n_masks,) or not torch.isfinite(out).all():
         raise AssertionError("ELL edge forward: outputs are not finite or of the wrong shape")
@@ -1020,8 +1125,9 @@ def phase_ell_edge_forward(dev) -> int:
     masks = all_masks[:BIG_B]
     got = engine.query_outputs(masks, EDGE_QUERY, "edge_prediction", chunk_size=BIG_B)
     spmm.batched_gather_sum = (
-        lambda table, ew, feats, b, w_slot=None:
-        spmm_cuda.batched_gather_sum_plain(table, feats, b, w_slot)
+        lambda table, ew, feats, b, w_slot=None, w_sample=None:
+        spmm_cuda.batched_gather_sum_plain(
+            table, feats, b, w_slot if w_sample is None else w_sample.permute(1, 2, 0))
     )
     try:
         want = engine.query_outputs(masks, EDGE_QUERY, "edge_prediction", chunk_size=BIG_B)
@@ -1192,33 +1298,34 @@ def hold_route(got, want, table, label, select: bool) -> float:
 
 
 def ladder_routes(table, feats, weights, ps, b, graph=None):
-    """Every route of the raw entry and its two callers, as (label, counter,
-    select, call, plain): the call goes through the public wrappers; the
-    plain computes the same function with the plain versions."""
+    """Every route of the raw entry and its two callers, as (label,
+    counters, select, call, plain): the call goes through the public
+    wrappers and launches each kernel of ``counters`` once; the plain
+    computes the same function with the plain versions."""
     import torch
     from bikg_graph_explainability_public_tpu_torch.ops import spmm, spmm_cuda as sc
 
     valid = table.valid
     routes = [
-        ("v7 static post_scale (2.3)", "gather_sum_static", False,
+        ("v7 static post_scale (2.3)", ("gather_sum_static",), False,
          lambda: sc.spmm_ell(table, valid, feats, b, sched="v7", post_scale=ps),
          lambda: sc.gather_sum_static_plain(table, feats, b, ps)),
-        ("v7 per_sample (2.4)", "batched_gather_sum", False,
+        ("v7 per_sample (2.4)", ("batched_gather_sum", "batched_gather_sum.transpose"), False,
          lambda: sc.spmm_ell(table, weights["per_sample"], feats, b, sched="v7"),
          lambda: sc.batched_gather_sum_plain(table, feats, b, weights["per_sample"])),
     ]
     for sched in ("v6", "v5"):
-        routes.append((f"{sched} static (2.{5 if sched == 'v6' else 8})", f"ell_valid_sum.{sched}", False,
+        routes.append((f"{sched} static (2.{5 if sched == 'v6' else 8})", (f"ell_valid_sum.{sched}",), False,
                        lambda s=sched: sc.spmm_ell(table, valid, feats, b, sched=s),
                        lambda: sc.gather_sum_static_plain(table, feats, b)))
     for sched in ("v3", "fused"):
         for mode, w in weights.items():
-            routes.append((f"{sched} {mode} (2.{6 if sched == 'v3' else 7})", f"spmm_ell_weighted.{sched}",
+            routes.append((f"{sched} {mode} (2.{6 if sched == 'v3' else 7})", (f"spmm_ell_weighted.{sched}",),
                            mode != "static",
                            lambda s=sched, w=w: sc.spmm_ell(table, w, feats, b, sched=s),
                            lambda w=w: sc.spmm_ell_weighted_plain(table, w, feats, b)))
     if b > 1:
-        routes.append(("batched_gather_sum broadcast (2.6)", "spmm_ell_weighted.v3", True,
+        routes.append(("batched_gather_sum broadcast (2.6)", ("spmm_ell_weighted.v3",), True,
                        lambda: sc.batched_gather_sum(table, None, feats, b, w_slot=weights["broadcast"]),
                        lambda: sc.spmm_ell_weighted_plain(table, weights["broadcast"], feats, b)))
     if graph is not None:
@@ -1233,7 +1340,7 @@ def ladder_routes(table, feats, weights, ps, b, graph=None):
             loop = torch.where(snd == rcv, ew, 0.0)
             return out + x1.new_zeros(x1.shape[0]).index_add_(0, rcv, loop)[:, None] * x1
 
-        routes.append(("weighted_gather_sum table b=1 (2.4)", "batched_gather_sum", False,
+        routes.append(("weighted_gather_sum table b=1 (2.4)", ("batched_gather_sum",), False,
                        lambda: spmm.weighted_gather_sum(ew, x1, snd, rcv, x1.shape[0], table=table),
                        plain_wgs))
     return routes
@@ -1302,12 +1409,12 @@ def l2_probe(table, weights) -> dict:
     return out
 
 
-def phase_ladder(dev, graph, table) -> list:
+def phase_ladder(dev, graph, table, counts_out: dict) -> list:
     """The ELL SpMM entry ``spmm_ell`` and its callers on the production
     table (100k / 1M, K = 32), B = 50, F = 128, float32: every route once
-    with the counts set to 0 (each held against its plain version), then
-    each timed; then every route in the edge cases.  Returns the records of
-    kernels 2.5-2.8."""
+    with the counts set to 0 (each held against its plain version; the
+    counts go into ``counts_out``), then each timed; then every route in the
+    edge cases.  Returns the records of kernels 2.5-2.8."""
     import torch
     from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
 
@@ -1315,16 +1422,18 @@ def phase_ladder(dev, graph, table) -> list:
     routes = ladder_routes(table, feats, weights, ps, BIG_B, graph)
     reset_counts()
     expected, errs = {}, {}
-    for label, counter, select, call, plain in routes:
+    for label, counters, select, call, plain in routes:
         got = call()
         errs[label] = hold_route(got, plain(), table, f"ladder {label}", select)
-        if counter == "batched_gather_sum" and "v7" in label and not torch.isnan(got[named_r0]).all():
+        if "batched_gather_sum" in counters and "v7" in label and not torch.isnan(got[named_r0]).all():
             raise AssertionError("kernel 2.4 should keep 0 * NaN on the rows that name the NaN row")
-        expected[counter] = expected.get(counter, 0) + 1
+        for counter in counters:
+            expected[counter] = expected.get(counter, 0) + 1
         log(f"ladder route {label}: max_abs_err={errs[label]:.3e} ok")
         del got
     counts = read_counts()
     expect_counts(counts, expected, "ladder (spmm_ell, batched_gather_sum, weighted_gather_sum)")
+    counts_out.update(counts)
 
     # timings: the routes, the plain version of each function once, and
     # torch.sparse.mm where one call computes the same function
@@ -1414,7 +1523,7 @@ def phase_ladder(dev, graph, table) -> list:
     for row, (counter, sched, replaces) in LADDER_ROWS.items():
         valid_sum = counter.startswith("ell_valid_sum")
         mode = "valid" if valid_sum else "broadcast"
-        mine = [label for label, c, _, _, _ in routes if c == counter and f"({row})" in label]
+        mine = [label for label, cs, _, _, _ in routes if counter in cs and f"({row})" in label]
         main = mine[0] if valid_sum else next(lb for lb in mine if " broadcast " in lb and lb.startswith(sched))
         rec = {
             "name": f"{counter} ({row}, sched={sched!r})",
@@ -1440,6 +1549,123 @@ def phase_ladder(dev, graph, table) -> list:
         rec["band_columns"] = band
         records.append(rec)
     return records
+
+
+#: the ELL prototype's run shape (benchmarks/exp_spmm_pallas_run.py:15-22)
+PROTO_N, PROTO_E, PROTO_F = 100_000, 1_000_000, 128
+
+
+def build_ell(snd, rcv, w, n, k_round=8):
+    """The ELL prototype's table (``benchmarks/exp_spmm_kernels.py::build_ell``):
+    receiver-sorted edges into ``nbr, wk [N, K]``, K the largest degree
+    rounded up to ``k_round``; padded slots hold ``nbr = 0, wk = 0``."""
+    import numpy as np
+
+    deg = np.bincount(rcv, minlength=n)
+    k = -(-int(deg.max()) // k_round) * k_round
+    nbr = np.zeros((n, k), np.int32)
+    wk = np.zeros((n, k), np.float32)
+    starts = np.zeros(n + 1, np.int64)
+    np.cumsum(deg, out=starts[1:])
+    slot = np.arange(len(rcv)) - starts[rcv]
+    nbr[rcv, slot] = snd
+    wk[rcv, slot] = w
+    return nbr, wk, k
+
+
+def phase_all_slots(dev) -> dict:
+    """Kernel 2.9, the ELL prototype's all-slot sum, at its run shape (100k
+    nodes, 1M receiver-sorted edges, F = 128, float32, seed 0): one call of
+    ``spmm_ell_all_slots`` with the counts set to 0, held against the plain
+    version and against the prototype's reference (a segment sum over the
+    edges), then timed beside ``torch.sparse.mm`` on the CSR of ``wk``.
+    Returns the kernel's record."""
+    import numpy as np
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
+
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(PROTO_N, PROTO_F)).astype(np.float32)
+    snd = rng.integers(0, PROTO_N, PROTO_E).astype(np.int32)
+    rcv = np.sort(rng.integers(0, PROTO_N, PROTO_E).astype(np.int32))
+    w_np = rng.random(PROTO_E).astype(np.float32)
+    nbr_np, wk_np, k = build_ell(snd, rcv, w_np, PROTO_N)
+    x = torch.from_numpy(x_np).to(dev)
+    nbr = torch.from_numpy(nbr_np).to(dev)
+    wk = torch.from_numpy(wk_np).to(dev)
+    table = sc.all_slots_table(nbr)
+
+    reset_counts()
+    got = sc.spmm_ell_all_slots(nbr, wk, x, table=table)
+    counts = read_counts()
+    expect_counts(counts, {"spmm_ell_all_slots": 1}, "kernel 2.9 (ELL prototype's run)")
+    want = sc.spmm_ell_weighted_plain(table, wk, x, 1)
+    err = hold_gather_sum(table, got, want, "2.9 prototype shape")
+    # the prototype's own reference: the weighted segment sum over the edges
+    ref = torch.zeros_like(got).index_add_(
+        0, torch.from_numpy(rcv).to(dev).long(),
+        torch.from_numpy(w_np).to(dev)[:, None] * x[torch.from_numpy(snd).to(dev).long()],
+    )
+    ref_err = (got - ref).abs().max().item()
+    if not torch.allclose(got, ref, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"2.9: differs from the segment sum over the edges by {ref_err:.3e}")
+
+    ms = cuda_ms(lambda: sc.spmm_ell_all_slots(nbr, wk, x, table=table), 20)
+    plain_ms = cuda_ms(lambda: sc.spmm_ell_weighted_plain(table, wk, x, 1), 3)
+    # yardstick only: cuSPARSE through torch.sparse.mm on the CSR of wk's
+    # nonzero slots (the padded slots weigh 0)
+    nz = wk != 0
+    rows = torch.arange(PROTO_N, device=dev)[:, None].expand_as(nbr)[nz]
+    adj = torch.sparse_coo_tensor(
+        torch.stack([rows, nbr[nz].long()]), wk[nz], (PROTO_N, PROTO_N)
+    ).coalesce().to_sparse_csr()
+    if not torch.allclose(torch.sparse.mm(adj, x), want, rtol=1e-4, atol=1e-4):
+        raise AssertionError("2.9: library yardstick computes another function")
+    library_ms = cuda_ms(lambda: torch.sparse.mm(adj, x), 20)
+    # where its time goes: the padded slots all name row 0, so their gathers
+    # hit one segment of each band in L2; the same sum with each padded slot
+    # naming its own row (weight 0 all the same: the same function on finite
+    # features) shows what that costs
+    pad = wk == 0
+    own = torch.arange(PROTO_N, dtype=torch.int32, device=dev)[:, None].expand_as(nbr)
+    spread = torch.where(pad, own, nbr).contiguous()
+    spread_table = sc.all_slots_table(spread)
+    spread_out = sc.spmm_ell_all_slots(spread, wk, x, table=spread_table)
+    if not torch.allclose(spread_out, want, rtol=1e-5, atol=1e-5):
+        raise AssertionError("2.9: the spread padding changes the sum")
+    del spread_out
+    spread_ms = cuda_ms(lambda: sc.spmm_ell_all_slots(spread, wk, x, table=spread_table), 20)
+    log(f"kernel 2.9: {int(pad.sum())} of {pad.numel()} slots are padding on row 0; "
+        f"the same sum with the padding spread over the rows' own indices takes "
+        f"{spread_ms:.4f} ms")
+    # least bytes: each source row that a slot names read once, every slot's
+    # index and weight once (all K are summed), the output written once;
+    # a multiply and an add per slot and column
+    uniq = int(torch.unique(nbr).numel())
+    nbytes = uniq * PROTO_F * 4 + PROTO_N * k * 8 + PROTO_N * PROTO_F * 4
+    ops = 2 * PROTO_N * k * PROTO_F
+    t = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / F32_OPS_PER_S}
+    bound_by = max(t, key=t.get)
+    log(f"kernel 2.9 at the prototype's shape N={PROTO_N} E={PROTO_E} K={k} F={PROTO_F}: "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"bound_ms={t[bound_by] * 1e3:.4f} ({bound_by}, {nbytes / 1e9:.3f} GB) "
+        f"max_abs_err={err:.3e} (plain), {ref_err:.3e} (segment sum) ok")
+    return {
+        "name": "spmm_ell_all_slots (2.9)",
+        "route": "cuda",
+        "source": f"{PKG}/ops/csrc/spmm_ell_weighted.cu",
+        "replaces": "benchmarks/exp_spmm_pallas_proto.py:21",
+        "launches": counts["spmm_ell_all_slots"],
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": t[bound_by] * 1e3,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library_note": "torch.sparse.mm on the CSR of wk's nonzero slots",
+        "padded_slots": int(pad.sum()),
+        "spread_padding_ms": spread_ms,
+    }
 
 
 def phase_model_families(dev, config) -> None:
@@ -1536,10 +1762,13 @@ def main() -> int:
     card = phase_header()
     phase_build()
     rec_23, graph, table = phase_kernel(dev)
-    rec_24 = phase_kernel_weighted(dev, table)
+    rec_24, rec_tr = phase_kernel_weighted(dev, table)
     rec_21, rec_22, rec_op = phase_kernel_dense(dev)
-    ladder = phase_ladder(dev, graph, table)
+    ladder_counts = {}
+    ladder = phase_ladder(dev, graph, table, ladder_counts)
+    rec_tr["launches"] = ladder_counts["batched_gather_sum.transpose"]
     del graph, table
+    rec_29 = phase_all_slots(dev)
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     reset_counts()
@@ -1556,7 +1785,8 @@ def main() -> int:
     expect_counts(read_counts(), {}, "model families (generic forward, segment operations)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
-    print(json.dumps({"kernels": [rec_21, rec_op, rec_22, rec_23, rec_24] + ladder}), flush=True)
+    print(json.dumps({"kernels": [rec_21, rec_op, rec_22, rec_23, rec_24, rec_tr] + ladder + [rec_29]}),
+          flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

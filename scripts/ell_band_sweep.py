@@ -8,10 +8,11 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It times the walk at the production shape of ``chip_smoke.py``'s ladder
 (100k nodes / 1M edges, K = 32, B = 50, F = 128, float32, the same seeded
-inputs) with the bands and work-item sizes of ``PLANS``, in four modes: the
+inputs) with the bands and work-item sizes of ``PLANS``, in five modes: the
 valid-prefix sum (kernel 2.5, ``ell_valid_sum``), the same with the output
-scale (kernel 2.3, ``gather_sum_static``), and kernel 2.6's static and
-broadcast weights.  Each plan's output is first held equal to the port's
+scale (kernel 2.3, ``gather_sum_static``), kernel 2.6's static and
+broadcast weights, and kernel 2.4 on sample-major per-sample weights
+``[B, N, K]`` (``batched_gather_sum(..., w_sample=)``).  Each plan's output is first held equal to the port's
 own call, bit for bit; the timings run in turns (the list, then reversed,
 twice) and the best of the four is printed, with the gather rate (the
 summed slots' source bytes over that time).
@@ -33,9 +34,9 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: (band columns, passes of a warp over an item): 32 rows an item, and 16 at
-#: the chosen 64 columns
-PLANS = ((32, 8), (48, 16), (64, 16), (64, 8))
+#: (band columns, passes of a warp over an item): 16 and 32 rows an item at
+#: 32 and at the chosen 64 columns, and 32 rows at 48 columns
+PLANS = ((32, 4), (32, 8), (48, 16), (64, 8), (64, 16))
 
 _BULK_HELPERS = r"""
 // The bulk-copy variant: one lane of a row's group copies each slot's
@@ -126,15 +127,15 @@ VARIANT = [
      "    const bool on = lrow < per_pass && col < w;\n"
      "    const int64_t left = (w - c0 + VEC - 1) / VEC;  // lanes of the band inside W\n"
      "    const int act = left < lanes ? static_cast<int>(left) : lanes;"),
-    ("          sum_row<T, VEC, WT>(acc, feats, w, col, sm.nbr + r * kt, sm.w + r * kt, d,"
-     " sm.gather,\n                              lane);",
-     "          if constexpr (WT == Weights::kUnit && kAsync<T, VEC>) {\n"
-     "            sum_row_bulk<T, VEC>(acc, feats, w, c0, sm.nbr + r * kt, d, sm.gather, sm.bar,\n"
-     "                                 bphase, lane, lrow, lanes, act);\n"
-     "          } else {\n"
-     "            sum_row<T, VEC, WT>(acc, feats, w, col, sm.nbr + r * kt, sm.w + r * kt, d,\n"
-     "                                sm.gather, lane);\n"
-     "          }"),
+    ("            sum_row<T, VEC, WT>(acc, feats, w, col, sm.nbr + r * kt, sm.w + r * kt, d,\n"
+     "                                sm.gather, lane);",
+     "            if constexpr (WT == Weights::kUnit && kAsync<T, VEC>) {\n"
+     "              sum_row_bulk<T, VEC>(acc, feats, w, c0, sm.nbr + r * kt, d, sm.gather,\n"
+     "                                   sm.bar, bphase, lane, lrow, lanes, act);\n"
+     "            } else {\n"
+     "              sum_row<T, VEC, WT>(acc, feats, w, col, sm.nbr + r * kt, sm.w + r * kt, d,\n"
+     "                                  sm.gather, lane);\n"
+     "            }"),
 ]
 
 
@@ -186,16 +187,6 @@ def same(a, b) -> bool:
     return torch.equal(torch.nan_to_num(a, nan=7.0), torch.nan_to_num(b, nan=7.0))
 
 
-def time_in_turns(cs, calls: dict, reps: int = 20) -> dict:
-    """{name: [ms of four runs]}: the list, reversed, the list, reversed."""
-    names = list(calls)
-    ms = {name: [] for name in names}
-    for order in (names, names[::-1], names, names[::-1]):
-        for name in order:
-            ms[name].append(cs.cuda_ms(calls[name], reps))
-    return ms
-
-
 def main() -> int:
     import torch
 
@@ -240,6 +231,14 @@ def main() -> int:
             lambda band, passes, w_slot=w_slot: sc._weighted_launch(
                 sc.SPMM_ELL_WEIGHTED["v3"], table, w_slot, feats, b, band, passes),
             read)
+    # kernel 2.4: the ladder's per-sample weights, sample-major; it multiplies,
+    # so every valid slot is read
+    w_bnk = weights["per_sample"].permute(2, 0, 1).contiguous()
+    modes["sample-major (2.4)"] = (
+        lambda: sc.batched_gather_sum(table, None, feats, b, w_sample=w_bnk),
+        lambda band, passes: sc._static_launch(sc.BATCHED_GATHER_SUM, table, feats, b, w_bnk,
+                                               band, passes),
+        read_valid)
     for mode, (port, at, read) in modes.items():
         want = port()
         calls = {f"band={band} passes={passes}": (lambda band=band, passes=passes: at(band, passes))
@@ -247,7 +246,7 @@ def main() -> int:
         for name, call in calls.items():
             if not same(call(), want):
                 raise AssertionError(f"{mode} {name}: differs from the port's call")
-        ms = time_in_turns(cs, calls)
+        ms = cs.in_turns(calls, 20, rounds=4)
         for name in calls:
             best = min(ms[name])
             print(f"{mode} {name}: {best:.4f} ms, gather {read * 4 / best / 1e6:.1f} GB/s; "
@@ -265,7 +264,7 @@ def main() -> int:
             lambda kernel=kernel, scale=scale: sc._static_launch(kernel, table, feats, b, scale))
         if not same(calls[f"{mode} cp.async.bulk"](), port()):
             raise AssertionError(f"bulk variant {mode}: differs from the port's call")
-    ms = time_in_turns(cs, calls)
+    ms = cs.in_turns(calls, 20, rounds=4)
     for name in calls:
         best = min(ms[name])
         print(f"bulk variant, {name}: {best:.4f} ms, "

@@ -3,8 +3,11 @@
 On the CPU the wrapper runs the kernel's plain PyTorch version; that is what
 is held here against a float64 numpy loop, against the JAX package's v7
 weighted Pallas kernel in interpret mode and against the JAX entry's XLA
-segment-sum.  The CUDA kernel itself is held against the plain version on
-the card by ``chip_smoke.py``.
+segment-sum, through both of its weight layouts: slot-major ``w_slot [N, K,
+B]`` (the JAX signature) and sample-major ``w_sample [B, N, K]`` (the
+engine's coefficients as made, which the kernel reads without a copy).  The
+CUDA kernel itself is held against the plain version on the card by
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,9 @@ from bikg_graph_explainability_public_tpu.ops import spmm as jspmm
 from bikg_graph_explainability_public_tpu.ops.spmm_pallas import (
     batched_gather_sum as j_batched_gather_sum,
 )
+from bikg_graph_explainability_public_tpu_torch.graph import from_arrays
+from bikg_graph_explainability_public_tpu_torch.models import fast_gcn
+from bikg_graph_explainability_public_tpu_torch.models.gnn import GCNNodeModel
 from bikg_graph_explainability_public_tpu_torch.ops import ell as tell
 from bikg_graph_explainability_public_tpu_torch.ops import spmm as tspmm
 from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda
@@ -177,6 +183,19 @@ def test_wrapper_checks_inputs():
         )
     with pytest.raises(ValueError):  # neither weights nor slot weights
         spmm_cuda.batched_gather_sum(tt, None, torch.zeros((N, 8)), 2)
+    with pytest.raises(ValueError):  # sample-major weights of the wrong shape
+        spmm_cuda.batched_gather_sum(
+            tt, None, torch.zeros((N, 8)), 2, w_sample=torch.zeros((N, 8, 2))
+        )
+    with pytest.raises(ValueError):  # sample-major weights of the wrong type
+        spmm_cuda.batched_gather_sum(
+            tt, None, torch.zeros((N, 8)), 2, w_sample=torch.zeros((2, N, 8), dtype=torch.float64)
+        )
+    with pytest.raises(ValueError):  # both layouts at once
+        spmm_cuda.batched_gather_sum(
+            tt, None, torch.zeros((N, 8)), 2, w_slot=torch.zeros((N, 8, 2)),
+            w_sample=torch.zeros((2, N, 8)),
+        )
     with pytest.raises(ValueError):  # fewer source rows than the table names
         spmm_cuda.batched_gather_sum(tt, ew, torch.zeros((tt.n_src - 1, 8)), 2)
     with pytest.raises(ValueError):  # neither the CPU nor the table's device
@@ -186,7 +205,123 @@ def test_wrapper_checks_inputs():
 def test_cpu_tensors_never_build_or_launch_the_kernel():
     src, dst, eid = _edges(8, seed=4)
     tt = tell.build_neighbor_table_edges(N, src, dst, eid, k=8, device="cpu")
-    before = spmm_cuda.BATCHED_GATHER_SUM.launches
+    kernels = (spmm_cuda.BATCHED_GATHER_SUM, spmm_cuda.SLOT_TRANSPOSE)
+    before = [k.launches for k in kernels]
     spmm_cuda.batched_gather_sum(tt, torch.ones((src.size, 2)), torch.ones((N, 8)), 2)
-    assert spmm_cuda.BATCHED_GATHER_SUM.launches == before
+    spmm_cuda.batched_gather_sum(tt, None, torch.ones((N, 8)), 2, w_sample=torch.ones((2, N, 8)))
+    spmm_cuda.slot_transpose(torch.ones((N, 8, 2)))
+    assert [k.launches for k in kernels] == before
     assert not spmm_cuda.BATCHED_GATHER_SUM.library.built
+
+
+# --- sample-major weights [B, N, K] ------------------------------------------
+
+
+def _sample_inputs(tt, b, f, dtype, seed):
+    """Seeded numpy inputs of the sample-major entry: features with NaN in
+    the rows that no valid slot names and in one row ``r0`` that valid slots
+    do name, sample-major weights ``[B, N, K]`` (a third of them 0, the
+    masked edges; zero on invalid slots) with every slot that names ``r0``
+    weighing 0.  Returns (feats, w_bnk, the rows that name r0)."""
+    rng = np.random.default_rng(seed)
+    nbr, valid = tt.nbr.numpy(), tt.valid.numpy() > 0
+    x = rng.standard_normal((N, b * f)).astype(np.float32)
+    x[N - DEAD_SRCS:] = np.nan  # rows that no valid slot names
+    r0 = int(nbr[valid][0])
+    x[r0] = np.nan
+    names_r0 = valid & (nbr == r0)
+    w = rng.standard_normal((b, N, tt.k)).astype(np.float32)
+    w[rng.random(w.shape) < 1 / 3] = 0.0
+    w[:, names_r0] = 0.0  # valid slots of weight 0 over the NaN row
+    w *= valid
+    return torch.from_numpy(x).to(dtype), w, names_r0.any(axis=1)
+
+
+# (b, K, dtype): b of 1, 16 and 48, K of 8, 16 and 32, bf16 and f32, each at
+# W = b*F a multiple of 128 (the JAX entry's v7 plan)
+SAMPLE_CASES = [
+    (1, 8, torch.float32, 128),
+    (1, 32, torch.bfloat16, 128),
+    (16, 16, torch.float32, 8),
+    (16, 8, torch.bfloat16, 8),
+    (48, 32, torch.float32, 8),
+    (48, 16, torch.bfloat16, 8),
+]
+
+
+@pytest.mark.parametrize("b,k,dtype,f", SAMPLE_CASES)
+def test_sample_major_matches_jax_interpret(b, k, dtype, f):
+    """The sample-major entry against JAX's ``batched_gather_sum`` in
+    interpret mode on the slot-major copy of the same weights: rows of
+    degree 0 are exact zeros, NaN in rows that no valid slot names never
+    reaches the sum, and a valid slot of weight 0 over a NaN row keeps
+    0 * NaN = NaN on both sides."""
+    src, dst, eid = _edges(k, seed=300 + k)
+    jt = jell.build_neighbor_table_edges(N, src, dst, eid, k=k)
+    tt = tell.build_neighbor_table_edges(N, src, dst, eid, k=k, device="cpu")
+    feats, w_bnk, named = _sample_inputs(tt, b, f, dtype, seed=b * k)
+    jfeats = jnp.asarray(feats.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    )
+    want = np.asarray(j_batched_gather_sum(
+        jt, None, jfeats, b=b, interpret=True, w_slot=jnp.asarray(w_bnk.transpose(1, 2, 0)),
+    ))
+    got = spmm_cuda.batched_gather_sum(tt, None, feats, b, w_sample=torch.from_numpy(w_bnk))
+    assert got.dtype == torch.float32 and got.shape == (N, b * f)
+    nan_rows = np.isnan(got.numpy()).any(axis=1)
+    np.testing.assert_array_equal(nan_rows, named)  # 0 * NaN kept exactly there
+    assert named.any() and np.isnan(got.numpy()[named]).all()
+    deg0 = tt.deg.numpy() == 0
+    assert deg0.sum() >= DEAD_ROWS and (got.numpy()[deg0] == 0).all()
+    np.testing.assert_allclose(got.numpy(), want, **TOL)  # NaN where NaN
+    # the slot-major entry on the same weights: the same plain sum, bit for bit
+    again = spmm_cuda.batched_gather_sum(
+        tt, None, feats, b, w_slot=torch.from_numpy(np.ascontiguousarray(w_bnk.transpose(1, 2, 0)))
+    )
+    torch.testing.assert_close(again, got, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("b,k", [(1, 8), (3, 16), (48, 32)])
+def test_slot_transpose_plain(b, k):
+    """[N, K, B] -> [B, N, K], a copy, exactly numpy's transpose."""
+    w = np.random.default_rng(b + k).standard_normal((N, k, b)).astype(np.float32)
+    got = spmm_cuda.slot_transpose(torch.from_numpy(w))
+    assert got.is_contiguous() and got.shape == (b, N, k)
+    np.testing.assert_array_equal(got.numpy(), w.transpose(2, 0, 1))
+    with pytest.raises(ValueError):
+        spmm_cuda.slot_transpose(torch.from_numpy(w[..., 0]))
+
+
+def test_engine_feeds_its_coefficients_sample_major(monkeypatch):
+    """The unrestricted edge forward hands layer 2 the layer-1 coefficients
+    ``coeff [B, N, K]`` as they are made (the same storage, no [N, K, B]
+    copy) through ``w_sample``."""
+    rng = np.random.default_rng(5)
+    n, e, b = 60, 240, 4
+    feat = rng.standard_normal((n, 84)).astype(np.float32)
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
+    graph = from_arrays(feat, ei, device="cpu")
+    model = GCNNodeModel(84, conv_channels=(16, 16), fc_channels=(16,))
+    engine = fast_gcn.FastBatchedGCN(model, graph, mode="ell", restrict=False, device="cpu")
+    masks = torch.from_numpy(rng.random((b, graph.e_pad)) > 0.3)
+    seen, coeffs = [], []
+    real_coeffs = engine._coeffs
+
+    def coeffs_spy(m, is_edge):
+        out = real_coeffs(m, is_edge)
+        coeffs.append(out[0])
+        return out
+
+    def gather_spy(ew, feats, bb, *, table, w_slot=None, w_sample=None):
+        seen.append((ew, w_slot, w_sample))
+        return tspmm.weighted_gather_sum_batched(ew, feats, bb, table=table, w_slot=w_slot,
+                                                 w_sample=w_sample)
+
+    monkeypatch.setattr(engine, "_coeffs", coeffs_spy)
+    monkeypatch.setattr(fast_gcn, "weighted_gather_sum_batched", gather_spy)
+    engine.batch_node_outputs(masks, is_edge=True)
+    assert len(seen) == 1 and len(coeffs) == 1
+    ew, w_slot, w_sample = seen[0]
+    assert ew is None and w_slot is None
+    assert w_sample.shape == (b, graph.n_pad, engine.table.k)
+    assert w_sample.data_ptr() == coeffs[0].data_ptr()

@@ -1,7 +1,8 @@
 """PyTorch port: the host side of the band walk (``ops/spmm_cuda.py``) that
-kernels 2.3, 2.5, 2.8 and 2.6/2.7 run: the band and grid plan, which
-weights take it, the argument lists of the C functions, and the walk's slot
-tiles in numpy.
+kernels 2.3, 2.4, 2.5, 2.8 and 2.6/2.7 (and 2.9 on 2.6's static mode) run:
+the band and grid plan, which weights take it, the argument lists of the C
+functions, and in numpy the walk's slot tiles and its sample-major weight
+reads; and kernel 2.9's entry against the ELL prototype's formula.
 
 The kernel itself runs only on the card, where ``chip_smoke.py`` holds it
 against its plain version; here the plan it is launched with is checked at
@@ -162,21 +163,27 @@ def _c_declaration(source: str, symbol: str) -> list:
     return [_C_TYPES[p.rsplit(" ", 1)[0]] for p in params]
 
 
-@pytest.mark.parametrize("name", ["gather_sum_static", "ell_valid_sum.v6", "ell_valid_sum.v5",
-                                  "batched_gather_sum", "spmm_ell_weighted.v3",
-                                  "spmm_ell_weighted.fused"])
+#: every kernel counter of the module, by the name chip_smoke.py gives it
+KERNELS = {
+    "gather_sum_static": sc.GATHER_SUM_STATIC,
+    "ell_valid_sum.v6": sc.ELL_VALID_SUM["v6"],
+    "ell_valid_sum.v5": sc.ELL_VALID_SUM["v5"],
+    "batched_gather_sum": sc.BATCHED_GATHER_SUM,
+    "batched_gather_sum.transpose": sc.SLOT_TRANSPOSE,
+    "spmm_ell_weighted.v3": sc.SPMM_ELL_WEIGHTED["v3"],
+    "spmm_ell_weighted.fused": sc.SPMM_ELL_WEIGHTED["fused"],
+    "spmm_ell_all_slots": sc.SPMM_ELL_ALL_SLOTS,
+}
+
+
+@pytest.mark.parametrize("name", list(KERNELS))
 def test_argtypes_match_the_c_declarations(name):
     """Each wrapper's ctypes list is its C function's parameter list, type
     by type (a 32-bit int where the C side takes a pointer or an int64_t
     would cut the value)."""
-    symbol, _, sched = name.partition(".")
-    kernel = {"gather_sum_static": sc.GATHER_SUM_STATIC,
-              "batched_gather_sum": sc.BATCHED_GATHER_SUM,
-              "ell_valid_sum": sc.ELL_VALID_SUM.get(sched),
-              "spmm_ell_weighted": sc.SPMM_ELL_WEIGHTED.get(sched)}[symbol]
-    assert kernel.symbol == symbol
+    kernel = KERNELS[name]
     source = os.path.basename(kernel.library.source)
-    assert kernel.argtypes == _c_declaration(source, symbol)
+    assert kernel.argtypes == _c_declaration(source, kernel.symbol)
 
 
 @pytest.mark.parametrize("kernel,scaled", [
@@ -184,19 +191,24 @@ def test_argtypes_match_the_c_declarations(name):
     ("gather_sum_static", False),
     ("v6", False),
     ("v5", False),
+    ("batched_gather_sum", True),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_static_args_match_the_c_signature(kernel, scaled, dtype):
     """The argument list of kernels 2.3 (with and without ``post_scale``),
-    2.5 and 2.8 has the C function's length and, position by position, a
-    value of its type, with the band walk's plan and counter where the C
-    function reads them."""
-    k = sc.GATHER_SUM_STATIC if kernel == "gather_sum_static" else sc.ELL_VALID_SUM[kernel]
+    2.4 (``w_bnk`` where 2.3 takes its scale), 2.5 and 2.8 has the C
+    function's length and, position by position, a value of its type, with
+    the band walk's plan and counter where the C function reads them."""
+    k = {"gather_sum_static": sc.GATHER_SUM_STATIC,
+         "batched_gather_sum": sc.BATCHED_GATHER_SUM}.get(kernel) or sc.ELL_VALID_SUM[kernel]
     b, f = 4, 8
     table = _table()
     feats = torch.zeros((64, b * f), dtype=dtype)
     out = torch.empty((64, b * f))
-    ps = torch.ones((64, b)) if scaled else None
+    if kernel == "batched_gather_sum":
+        ps = torch.ones((b, 64, table.k))
+    else:
+        ps = torch.ones((64, b)) if scaled else None
     vec = _vec(f, dtype)
     plan = sc.band_plan(64, b * f, feats.element_size(), vec, SMS)
     counter = torch.zeros(1, dtype=torch.int32)
@@ -211,7 +223,7 @@ def test_static_args_match_the_c_signature(kernel, scaled, dtype):
             assert isinstance(arg, int) and -half <= arg < half, i
     assert args[:4] == (feats.data_ptr(), 0 if dtype == torch.float32 else 1,
                         table.nbr.data_ptr(), table.deg.data_ptr())
-    if k is sc.GATHER_SUM_STATIC:  # the scale's pointer, null without one
+    if k.argtypes is sc._STATIC_ARGS:  # the scale's (or w_bnk's) pointer, null without one
         assert args[4] == (ps.data_ptr() if scaled else None)
         rest = args[5:]
     else:
@@ -310,3 +322,128 @@ def test_walk_scales_each_row_once_in_its_last_tile(tile):
     if (deg > tile).any():
         wrong = _walk_model(table, feats, b, ps, tile, scale_each_tile=True)
         assert not np.allclose(wrong[deg > tile], want[deg > tile])
+
+
+# ---------------------------------------------------------------------------
+# kernel 2.4 (csrc/batched_gather_sum.cu) on the walk: sample-major weights
+
+
+def _sample_walk_model(table, feats, b, w_bnk, band, vec, fixed_sample=None):
+    """The walk's weight reads under ``kSample`` in numpy: for each band
+    [c0, c0 + band) and each lane's ``vec`` columns at ``col``, the lane sums
+    its row's valid slots in order with the weights of sample ``s``, read at
+    the flat offset ``s * N * K + v * K + j`` of ``w_bnk``: ``s = c0 // F``
+    (the item's staged run) where the band lies in one sample, else the
+    lane's own ``col // F``.  ``fixed_sample`` forces ``s`` (a mutation)."""
+    nbr, deg = table.nbr.numpy(), table.deg.numpy()
+    x = feats.float().numpy()
+    n, k = nbr.shape
+    w = x.shape[1]
+    f = w // b
+    flat = w_bnk.numpy().reshape(-1)
+    out = np.zeros((n, w), np.float32)
+    for c0 in range(0, w, band):
+        staged = c0 // f == (min(c0 + band, w) - 1) // f
+        for col in range(c0, min(c0 + band, w), vec):
+            s = c0 // f if staged else col // f
+            if fixed_sample is not None:
+                s = fixed_sample
+            ws = flat[s * n * k:(s + 1) * n * k].reshape(n, k)
+            acc = np.zeros((n, vec), np.float32)
+            for j in range(k):
+                take = j < deg
+                # float32: the product rounded, then the sum, as the kernel
+                acc[take] = acc[take] + ws[take, j, None] * x[nbr[take, j], col:col + vec]
+            out[:, col:col + vec] = acc
+    return out
+
+
+# (b, F, dtype): bands that span samples (F below the band, or above it and
+# not a multiple of it), scalar lanes (F = 3), and bands within one sample
+SAMPLE_SHAPES = [
+    (7, 20, torch.float32),
+    (48, 3, torch.float32),
+    (2, 96, torch.float32),
+    (16, 8, torch.bfloat16),
+    (3, 24, torch.bfloat16),
+    (3, 128, torch.float32),
+]
+
+
+@pytest.mark.parametrize("b,f,dtype", SAMPLE_SHAPES)
+def test_sample_major_walk_reads_each_lanes_sample(b, f, dtype):
+    """At the band and lane width the wrapper would launch with, the model
+    of the walk's sample-major weight reads gives the plain version bit for
+    bit; reading sample 0's weights everywhere (the per-band offset
+    ``s * N * K`` dropped) does not."""
+    n = 64
+    table = _table(n=n, k=8, seed=7)
+    rng = np.random.default_rng(b * f)
+    feats = torch.from_numpy(rng.standard_normal((n, b * f)).astype(np.float32)).to(dtype)
+    w_bnk = torch.from_numpy(rng.standard_normal((b, n, 8)).astype(np.float32)) * table.valid
+    vec = _vec(f, dtype)
+    plan = sc.band_plan(n, b * f, dtype.itemsize, vec, SMS)
+    want = sc.batched_gather_sum(table, None, feats, b, w_sample=w_bnk).numpy()
+    np.testing.assert_array_equal(_sample_walk_model(table, feats, b, w_bnk, plan.band, vec), want)
+    wrong = _sample_walk_model(table, feats, b, w_bnk, plan.band, vec, fixed_sample=0)
+    assert not np.allclose(wrong, want)
+
+
+# ---------------------------------------------------------------------------
+# kernel 2.9: the ELL prototype's all-slot sum on 2.6's static walk
+
+
+def _build_ell(snd, rcv, w, n, k_round=8):
+    """The prototype's table, as ``benchmarks/exp_spmm_kernels.py::build_ell``
+    makes it: receiver-sorted edges, K the largest degree rounded up to
+    ``k_round``, padded slots ``nbr = 0, wk = 0``."""
+    deg = np.bincount(rcv, minlength=n)
+    k = -(-int(deg.max()) // k_round) * k_round
+    nbr = np.zeros((n, k), np.int32)
+    wk = np.zeros((n, k), np.float32)
+    starts = np.zeros(n + 1, np.int64)
+    np.cumsum(deg, out=starts[1:])
+    slot = np.arange(len(rcv)) - starts[rcv]
+    nbr[rcv, slot] = snd
+    wk[rcv, slot] = w
+    return nbr, wk, k
+
+
+@pytest.mark.parametrize("n,e,f", [(2000, 20000, 128), (500, 3000, 256), (300, 600, 128)])
+def test_all_slots_matches_the_prototype_formula(n, e, f):
+    """``spmm_ell_all_slots`` against ``out[v] = sum_k wk[v, k] *
+    x[nbr[v, k]]`` over all K slots in float64, on the prototype's seeded
+    inputs (the prototype takes no ``interpret`` flag, so its formula is the
+    reference); the padded slots are summed too."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    snd = rng.integers(0, n, e).astype(np.int32)
+    rcv = np.sort(rng.integers(0, n, e).astype(np.int32))
+    w = rng.random(e).astype(np.float32)
+    nbr, wk, k = _build_ell(snd, rcv, w, n)
+    assert (wk == 0).any()  # padded slots
+    want = (wk[:, :, None].astype(np.float64) * x[nbr].astype(np.float64)).sum(axis=1)
+    got = sc.spmm_ell_all_slots(torch.from_numpy(nbr), torch.from_numpy(wk), torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (n, f)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_all_slots_table_and_refusals():
+    """The table holds every slot valid (``deg = K``, no host check), and
+    the entry refuses another table or weights of another shape; on the CPU
+    it launches nothing."""
+    nbr = torch.from_numpy(np.random.default_rng(1).integers(0, 40, (50, 8)).astype(np.int32))
+    table = sc.all_slots_table(nbr)
+    assert (table.deg == 8).all() and table.n_src == int(nbr.max()) + 1
+    assert table.valid.shape == (50, 8) and (table.valid == 1).all()
+    x, wk = torch.ones((40, 16)), torch.ones((50, 8))
+    before = sc.SPMM_ELL_ALL_SLOTS.launches
+    torch.testing.assert_close(sc.spmm_ell_all_slots(nbr, wk, x, table=table),
+                               torch.full((50, 16), 8.0), rtol=0, atol=0)
+    assert sc.SPMM_ELL_ALL_SLOTS.launches == before
+    with pytest.raises(ValueError):
+        sc.spmm_ell_all_slots(nbr, wk, x, table=sc.all_slots_table(nbr.clone()))
+    with pytest.raises(ValueError):
+        sc.spmm_ell_all_slots(nbr, torch.ones((50, 7)), x)
+    with pytest.raises(ValueError):  # fewer source rows than the slots name
+        sc.spmm_ell_all_slots(nbr, wk, torch.ones((int(nbr.max()), 16)))
