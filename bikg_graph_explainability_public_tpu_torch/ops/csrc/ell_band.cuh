@@ -1,8 +1,8 @@
 // The band walk shared by the ELL gather-sums (Hopper, sm_90a):
 // gather_sum_static.cu (kernels 2.3, 2.5 and 2.8), the static and broadcast
-// modes of spmm_ell_weighted.cu (kernels 2.6 and 2.7, and 2.9 on the static
-// mode) and batched_gather_sum.cu (kernel 2.4, per-sample weights held
-// sample-major).
+// modes of spmm_ell_weighted.cu (kernels 2.6 and 2.7), batched_gather_sum.cu
+// (kernel 2.4, per-sample weights held sample-major) and
+// spmm_ell_all_slots.cu (kernel 2.9, the guarded mode).
 //
 //   out[v, c] = scale(v, c) * sum_{k < deg[v]} term(w[v, k], feats[nbr[v, k], c])
 //
@@ -19,7 +19,12 @@
 //   kSample  w_bnk [B, N, K] (one weight per slot and sample, sample-major):
 //            w[s, v, k] * x on the columns of sample s, the product rounded
 //            before the sum (no fused multiply-add), so that the sum is bit
-//            for bit the plain version's term = w * x; out += term.
+//            for bit the plain version's term = w * x; out += term;
+//   kGuard   w_slot [N, K] and bad [N_src] (1 where a source row holds a
+//            non-finite value): w * x as kStatic adds it, on the slots where
+//            w != 0 or bad[nbr] (the others are neither read nor summed), so
+//            that the sum is kStatic's wherever that is finite, and NaN
+//            where kStatic's is (spmm_ell_all_slots.cu gives the argument).
 //
 // With SCALE the finished sum of each column c is multiplied once by
 // post_scale[v, c / F] ([N, B] float32).  Sums accumulate in float32, slots
@@ -44,7 +49,8 @@
 // hits.  Per item the warp stages the chunk's degrees (read ahead, during
 // the previous item), then the valid prefixes of its indices (and weights;
 // kUnit stages indices only), in its own shared memory, up to
-// kt = 512 / rows slots a row at a time.  Each row's band / VEC lanes then
+// kt = 512 / rows slots a row at a time (kGuard: the power of two at or
+// below it).  Each row's band / VEC lanes then
 // gather its valid prefix, up to 16 slots at once, with cp.async: 16 bytes a
 // lane into shared memory, not registers, so that a warp has two rows' whole
 // prefixes in flight (8 KB) at four blocks an SM.  In the select mode the
@@ -82,11 +88,23 @@
 // N x band x itemsize exceeds its L2 budget (PERF.md,
 // scripts/ell_band_sweep.py).
 //
+// The guarded select (kGuard).  Each staged slot is taken where its weight
+// is non-zero or bad[] flags its source row; the taken slots of a row's
+// tile are compacted to the front of the row's staged run, in slot order,
+// before any copy issues: a lane's place is the count of taken slots before
+// it in its row, from one warp ballot per 32 staged slots (kt a power of
+// two, so a row's run is a group of kt lanes of one ballot, or kt / 32 whole
+// ballots), and the row's taken count goes into the upper half of the
+// warp's deg[] (rows <= kWarpRows / 2).  A row of d taken slots is then one
+// round trip of d copies where d <= kBatch, however its zero weights lie;
+// the select mode's predicated batches take ceil(deg / kBatch) trips.
+//
 // Guarantees: slot k >= deg[v] is never read (NaN in source rows that only
 // invalid slots name cannot reach the sum, rows of degree 0 come out as
 // exact zeros, times the scale); in the select mode the source row of a
-// slot of weight 0 is never read; the static and sample-major modes multiply
-// and keep 0 * NaN; offsets are 64-bit (N * W is above 2^31 at the production shape).
+// slot of weight 0 is never read, in the guarded mode only where that row
+// is flagged; the static and sample-major modes multiply and keep 0 * NaN;
+// offsets are 64-bit (N * W is above 2^31 at the production shape).
 
 #pragma once
 
@@ -105,7 +123,7 @@ constexpr int kBatch = 16;           // slots of a row in flight (cp.async path)
 constexpr int kUnroll = 8;           // slots of a row in flight (register path)
 
 // What a valid slot adds (see the head of this file).
-enum class Weights { kUnit, kStatic, kSelect, kSample };
+enum class Weights { kUnit, kStatic, kSelect, kSample, kGuard };
 
 // One warp's shared memory: the landing slots of its cp.async gathers (one
 // 16-byte slot per lane and slot of the batch) and its staged item.
@@ -113,9 +131,11 @@ struct WarpSmem {
   uint4 gather[kBatch * 32];
   int32_t nbr[kWarpStage];
   union {
-    float w[kWarpStage];     // the slots' weights (kStatic, kSelect, kSample)
+    float w[kWarpStage];     // the slots' weights (kStatic, kSelect, kSample, kGuard)
     float scale[kWarpRows];  // the rows' scales (kUnit with SCALE)
   };
+  // the rows' degrees; under kGuard those below kWarpRows / 2, the rows'
+  // taken counts in the current slot tile above
   int32_t deg[kWarpRows];
 };
 constexpr int kSmemBytes = kWarps * static_cast<int>(sizeof(WarpSmem));
@@ -317,6 +337,15 @@ __device__ __forceinline__ void sum_row(float* acc, const T* __restrict__ feats,
   }
 }
 
+// kGuard's compaction of one ballot: for this lane's slot, its place in its
+// row's staged run (the taken slots before it in the row, so that the taken
+// slots keep their order), and the row's taken count so far.  m: the taken
+// lanes of this lane's row in this ballot, which starts at lane g0 and at
+// slot off of the row; run: the row's count before this ballot.
+__device__ __forceinline__ int2 guard_place(unsigned m, int lane, int g0, int off, int run) {
+  return make_int2(run + __popc(m & ((1u << lane) - 1u)), run + __popc(m));
+}
+
 template <int VEC>
 __device__ __forceinline__ void store_stream(float* o, const float* acc) {
   if constexpr (VEC == 1) {
@@ -330,13 +359,14 @@ __device__ __forceinline__ void store_stream(float* o, const float* acc) {
 }
 
 // The walk.  w_slot is null under kUnit (w_bnk [B, N, K] under kSample),
-// post_scale null unless SCALE.
+// post_scale null unless SCALE, bad null unless kGuard.
 template <typename T, int VEC, Weights WT, bool SCALE>
 __global__ void __launch_bounds__(kThreads)
 ell_band_kernel(const T* __restrict__ feats, const int32_t* __restrict__ nbr,
                 const int32_t* __restrict__ deg, const float* __restrict__ w_slot,
-                const float* __restrict__ post_scale, float* __restrict__ out, int64_t n,
-                int64_t k, int64_t w, int64_t f, int band, int rows, int* __restrict__ counter) {
+                const float* __restrict__ post_scale, const uint8_t* __restrict__ bad,
+                float* __restrict__ out, int64_t n, int64_t k, int64_t w, int64_t f, int band,
+                int rows, int* __restrict__ counter) {
   extern __shared__ uint4 smem[];
   WarpSmem& sm = reinterpret_cast<WarpSmem*>(smem)[threadIdx.x / 32];
   const int lane = threadIdx.x % 32;
@@ -345,7 +375,10 @@ ell_band_kernel(const T* __restrict__ feats, const int32_t* __restrict__ nbr,
   const int per_pass = 32 / lanes;       // rows a warp sums side by side
   const int lrow = lane / lanes;         // this lane's row within a pass
   const int64_t lcol = static_cast<int64_t>(lane % lanes) * VEC;
-  const int kt = kWarpStage / rows;      // slots of a row staged at a time
+  // slots of a row staged at a time (kGuard: a power of two, for its ballots)
+  const int kt = WT == Weights::kGuard ? 1 << (31 - __clz(kWarpStage / rows))
+                                       : kWarpStage / rows;
+  int32_t* const cnt = sm.deg + kWarpRows / 2;  // kGuard: the rows' taken slots in a tile
   const int64_t chunks = (n + rows - 1) / rows;
   const int64_t items = chunks * ((w + band - 1) / band);
   const int64_t samples = w / f;         // B, the columns of post_scale
@@ -417,13 +450,45 @@ ell_band_kernel(const T* __restrict__ feats, const int32_t* __restrict__ nbr,
           if constexpr (WT != Weights::kUnit) pw[t] = __ldg(w_slot + wbase + (v0 + r) * k + j);
         }
       }
+      if constexpr (WT == Weights::kGuard) {
+        // which slots are taken: the flags of zero-weight slots' rows, all
+        // in flight, then one ballot per 32 slots places the taken ones
+        bool take[kStagePerLane];
 #pragma unroll
-      for (int t = 0; t < kStagePerLane; ++t) {
-        const int i = lane + 32 * t;
-        const int r = i / kt;
-        if (i < nrows * kt && j0 + (i - r * kt) < sm.deg[r]) {
-          sm.nbr[i] = pn[t];
-          if constexpr (WT != Weights::kUnit) sm.w[i] = pw[t];
+        for (int t = 0; t < kStagePerLane; ++t) {
+          const int i = lane + 32 * t;
+          const int r = i / kt;
+          take[t] = i < nrows * kt && j0 + (i - r * kt) < sm.deg[r];
+          if (take[t] && pw[t] == 0.0f) take[t] = __ldg(bad + pn[t]) != 0;
+        }
+        int run = 0;  // the taken slots of a row that spans ballots (kt > 32)
+#pragma unroll
+        for (int t = 0; t < kStagePerLane; ++t) {
+          const int i = lane + 32 * t;
+          const unsigned bal = __ballot_sync(0xffffffffu, take[t]);
+          const int g0 = kt < 32 ? lane & ~(kt - 1) : 0;  // the row's first lane
+          const int off = kt < 32 ? 0 : (32 * t) & (kt - 1);  // the ballot's first slot in the row
+          if (off == 0) run = 0;
+          const int2 p = guard_place(kt < 32 ? bal & (((1u << kt) - 1u) << g0) : bal, lane, g0,
+                                     off, run);
+          const int r = i / kt;
+          if (take[t]) {
+            sm.nbr[r * kt + p.x] = pn[t];
+            sm.w[r * kt + p.x] = pw[t];
+          }
+          // the row's run ends in this ballot: its count
+          if (lane == g0 && off + 32 >= kt && r < nrows) cnt[r] = p.y;
+          run = p.y;
+        }
+      } else {
+#pragma unroll
+        for (int t = 0; t < kStagePerLane; ++t) {
+          const int i = lane + 32 * t;
+          const int r = i / kt;
+          if (i < nrows * kt && j0 + (i - r * kt) < sm.deg[r]) {
+            sm.nbr[i] = pn[t];
+            if constexpr (WT != Weights::kUnit) sm.w[i] = pw[t];
+          }
         }
       }
       __syncwarp();
@@ -435,7 +500,8 @@ ell_band_kernel(const T* __restrict__ feats, const int32_t* __restrict__ nbr,
       if (on) {
         for (int r = lrow; r < nrows; r += per_pass) {
           const int dr = sm.deg[r];
-          const int d = min(dr - j0, kt);         // this tile's valid slots of row r
+          // this tile's valid (kGuard: taken) slots of row r
+          const int d = WT == Weights::kGuard ? cnt[r] : min(dr - j0, kt);
           if (j0 > 0 && d <= 0) continue;         // summed and stored by an earlier tile
           float acc[VEC];
           float* o = out + (v0 + r) * w + col;
@@ -466,15 +532,19 @@ ell_band_kernel(const T* __restrict__ feats, const int32_t* __restrict__ nbr,
 }
 
 // Checks the plan (spmm_cuda.band_plan) and launches the walk: `grid`
-// persistent blocks of kThreads; `counter` one int32 that is 0 at the launch.
-// Returns cudaGetLastError() after the launch.
+// persistent blocks of kThreads; `counter` one int32 that is 0 at the launch;
+// `bad` the source rows' flags (kGuard only).  Returns cudaGetLastError()
+// after the launch.
 template <typename T, int VEC, Weights WT, bool SCALE>
 cudaError_t launch_band(const void* feats, const void* nbr, const void* deg, const void* w_slot,
                         const void* post_scale, void* out, int64_t n, int64_t k, int64_t w,
                         int64_t f, int band, int rows, int grid, void* counter,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, const void* bad = nullptr) {
   if (band < VEC || band % VEC || band / VEC > 32) return cudaErrorInvalidValue;
-  if (rows < 1 || rows > kWarpRows) return cudaErrorInvalidValue;
+  if (rows < 1 || rows > (WT == Weights::kGuard ? kWarpRows / 2 : kWarpRows)) {
+    return cudaErrorInvalidValue;
+  }
+  if ((WT == Weights::kGuard) != (bad != nullptr)) return cudaErrorInvalidValue;
   if ((SCALE || WT == Weights::kSample) && (f < 1 || w % f)) return cudaErrorInvalidValue;
   const int64_t items = (n + rows - 1) / rows * ((w + band - 1) / band);
   // every warp takes one number past the last item
@@ -486,8 +556,8 @@ cudaError_t launch_band(const void* feats, const void* nbr, const void* deg, con
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(feats), static_cast<const int32_t*>(nbr),
       static_cast<const int32_t*>(deg), static_cast<const float*>(w_slot),
-      static_cast<const float*>(post_scale), static_cast<float*>(out), n, k, w, f, band, rows,
-      static_cast<int*>(counter));
+      static_cast<const float*>(post_scale), static_cast<const uint8_t*>(bad),
+      static_cast<float*>(out), n, k, w, f, band, rows, static_cast<int*>(counter));
   return cudaGetLastError();
 }
 

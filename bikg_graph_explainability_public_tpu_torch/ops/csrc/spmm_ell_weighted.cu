@@ -32,9 +32,8 @@
 // a band-major, L2-resident walk over 64-column bands of the source rows,
 // whose design, band and guarantees that header describes.  This file adds
 // the weight policy (kStatic, kSelect) and the per-sample schedule below.
-// Kernel 2.9 (spmm_cuda.spmm_ell_all_slots, the ELL prototype of the JAX
-// package's benchmarks) is the static mode on a table whose every slot is
-// valid, counted apart.
+// Kernel 2.9 (spmm_ell_all_slots.cu) is held bit for bit against the static
+// mode on a table whose every slot is valid.
 // Swept on the H100 (scripts/ell_band_sweep.py): bands of 32 and 48 columns
 // were slower than 64 (more items and index reads per byte gathered), and an
 // L2 evict_last policy on the gathers gained nothing once they went through

@@ -13,11 +13,13 @@ PyTorch versions and :func:`spmm_ell`, the entry that routes by schedule.
 * :func:`spmm_ell_weighted` (``csrc/spmm_ell_weighted.cu``, kernels 2.6 and
   2.7): slot weights, static ``[N, K]`` (multiplied) or ``[N, K, wb]`` with
   ``wb`` in ``{1, B}`` (selected: a slot of weight 0 adds nothing).
-* :func:`spmm_ell_all_slots` (kernel 2.9, the ELL prototype of the JAX
-  package's benchmarks): every slot summed, on 2.6's static walk.
+* :func:`spmm_ell_all_slots` (``csrc/spmm_ell_all_slots.cu``, kernel 2.9,
+  the ELL prototype of the JAX package's benchmarks): every slot summed, as
+  2.6's static walk sums them, skipping exactly the zero-weight slots whose
+  source row :func:`nonfinite_rows` does not flag.
 
-Kernels 2.3, 2.4, 2.5 and 2.8, and 2.6/2.7 with one weight per slot, run
-one band-major walk whose column band of the source rows stays in L2
+Kernels 2.3, 2.4, 2.5, 2.8 and 2.9, and 2.6/2.7 with one weight per slot,
+run one band-major walk whose column band of the source rows stays in L2
 (``csrc/ell_band.cuh``; :func:`band_plan` picks the band and the persistent
 grid).
 
@@ -53,6 +55,11 @@ _VALID_ARGS = [_p, _i, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _i, _i, _p, _i, _
 _WEIGHTED_ARGS = [
     _p, _i, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _p, _i, _p,
 ]
+# (x, dtype, bad, n, f, vec, stream)
+_FLAG_ARGS = [_p, _i, _p, _i64, _i64, _i, _p]
+# (x, dtype, nbr, deg, wk, bad, out, n, k, f, band, rows, grid, counter, vec,
+#  stream)
+_ALL_SLOTS_ARGS = [_p, _i, _p, _p, _p, _p, _p, _i64, _i64, _i64, _i, _i, _i, _p, _i, _p]
 
 #: kernel 2.3, the static separable gather-sum
 GATHER_SUM_STATIC = Kernel("gather_sum_static.cu", "gather_sum_static", _STATIC_ARGS)
@@ -71,8 +78,10 @@ SPMM_ELL_WEIGHTED = {
     s: Kernel("spmm_ell_weighted.cu", "spmm_ell_weighted", _WEIGHTED_ARGS)
     for s in ("v3", "fused")
 }
-#: kernel 2.9, the all-slot sum: 2.6's static walk, counted apart
-SPMM_ELL_ALL_SLOTS = Kernel("spmm_ell_weighted.cu", "spmm_ell_weighted", _WEIGHTED_ARGS)
+#: kernel 2.9, the all-slot sum: the band walk's guarded select
+SPMM_ELL_ALL_SLOTS = Kernel("spmm_ell_all_slots.cu", "spmm_ell_all_slots", _ALL_SLOTS_ARGS)
+#: kernel 2.9's first launch: the source rows that hold a non-finite value
+NONFINITE_ROWS = Kernel("spmm_ell_all_slots.cu", "nonfinite_rows", _FLAG_ARGS)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -300,6 +309,9 @@ BAND_THREADS, BAND_MAX_ROWS, BAND_BLOCKS_PER_SM = 128, 256, 4
 BAND_WARP_STAGE = 512
 #: the passes a warp makes over an item's rows (32 / lanes rows a pass)
 BAND_PASSES = 16
+#: kernel 2.9's rows an item at most: the upper half of the warp's degree
+#: slots holds the rows' taken counts
+GUARD_MAX_ROWS = BAND_MAX_ROWS // 2
 #: the bytes of each source row a band takes: 64 float32 or 128 bfloat16
 #: columns, two 128-byte lines
 BAND_BYTES = 256
@@ -329,7 +341,7 @@ class BandPlan(NamedTuple):
 
 def band_plan(
     n: int, w: int, itemsize: int, vec: int, sms: int, band: Optional[int] = None,
-    passes: int = BAND_PASSES,
+    passes: int = BAND_PASSES, max_rows: int = BAND_MAX_ROWS,
 ) -> BandPlan:
     """The band walk for ``[n, w]`` features of ``itemsize`` bytes read
     ``vec`` elements a lane, on a card of ``sms`` SMs.  The band is
@@ -337,7 +349,8 @@ def band_plan(
     exceeds :data:`L2_BAND_BUDGET` (not below one 128-byte line), and no
     wider than ``w`` or 32 lanes of a warp; ``band`` overrides that choice.
     A work item is ``passes`` passes of a warp over its rows, at most
-    :data:`BAND_MAX_ROWS`.  A band is a multiple of ``vec``, so every band
+    ``max_rows`` (:data:`BAND_MAX_ROWS`; kernel 2.9 keeps half the warp's
+    degree slots for its counts).  A band is a multiple of ``vec``, so every band
     starts 16-byte aligned where ``vec > 1``."""
     if band is None:
         band = BAND_BYTES // itemsize
@@ -348,7 +361,7 @@ def band_plan(
     lanes = band // vec
     if band % vec or not 1 <= lanes <= 32:
         raise ValueError(f"band of {band} columns does not suit {vec}-element lanes")
-    rows = min(32 // lanes * passes, BAND_MAX_ROWS)
+    rows = min(32 // lanes * passes, max_rows)
     items = -(-n // rows) * -(-w // band)
     return BandPlan(band, rows, min(items, sms * BAND_BLOCKS_PER_SM), items)
 
@@ -380,12 +393,12 @@ def uses_band_walk(w_slot: torch.Tensor, b: int) -> bool:
     return w_slot.dim() == 2 or w_slot.shape[2] == 1 or b == 1
 
 
-def _plan(feats: torch.Tensor, out: torch.Tensor, b: int, band, passes):
+def _plan(feats: torch.Tensor, out: torch.Tensor, b: int, band, passes, max_rows=BAND_MAX_ROWS):
     """(vec, plan) of a band-walk launch that writes ``out``."""
     n, w = out.shape
     vec = _vec(feats, out, w // b)
     sms = _sm_count(feats.device.index)
-    return vec, band_plan(n, w, feats.element_size(), vec, sms, band, passes)
+    return vec, band_plan(n, w, feats.element_size(), vec, sms, band, passes, max_rows)
 
 
 def _static_args(kernel: Kernel, table, feats, out, b, operand, vec, plan, counter,
@@ -482,19 +495,99 @@ def all_slots_table(nbr: torch.Tensor):
     return NeighborTable(nbr=nbr, valid=ones, eid=zeros)
 
 
+def nonfinite_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """:func:`nonfinite_rows` in plain PyTorch."""
+    return (~torch.isfinite(x)).any(dim=1).to(torch.uint8)
+
+
+def nonfinite_rows(x: torch.Tensor) -> torch.Tensor:
+    """``bad [N_src]`` uint8: 1 where row ``u`` of ``x [N_src, F]`` (float32
+    or bfloat16) holds +-Inf or NaN, else 0.  On a CUDA tensor this launches
+    the flag pass of ``csrc/spmm_ell_all_slots.cu`` (or raises); on a CPU
+    tensor it runs :func:`nonfinite_rows_plain`."""
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODE:
+        raise ValueError(
+            f"x must be [N_src, F] float32 or bfloat16, got {tuple(x.shape)} {x.dtype}"
+        )
+    if x.device.type == "cpu":
+        return nonfinite_rows_plain(x)
+    if x.device.type != "cuda" or not x.is_contiguous():
+        raise ValueError("nonfinite_rows needs a contiguous CUDA or CPU tensor")
+    n, f = x.shape
+    if n == 0 or f == 0:
+        return torch.zeros(n, dtype=torch.uint8, device=x.device)
+    bad = torch.empty(n, dtype=torch.uint8, device=x.device)
+    with torch.cuda.device(x.device):
+        NONFINITE_ROWS.launch(*_flag_args(x, bad, torch.cuda.current_stream(x.device).cuda_stream))
+    return bad
+
+
+def _flag_args(x: torch.Tensor, bad: torch.Tensor, stream) -> tuple:
+    """The flag pass's arguments, in the order of :data:`_FLAG_ARGS`: 16-byte
+    lanes where F is a multiple of them and ``x`` is 16-byte aligned, else
+    scalar lanes."""
+    n, f = x.shape
+    vec = 16 // x.element_size()
+    if f % vec or x.data_ptr() % 16:
+        vec = 1
+    return (x.data_ptr(), _DTYPE_CODE[x.dtype], bad.data_ptr(), n, f, vec, stream)
+
+
+def _guard_args(table, wk, x, bad, out, vec, plan, counter, stream) -> tuple:
+    """Kernel 2.9's walk arguments, in the order of :data:`_ALL_SLOTS_ARGS`."""
+    n, f = out.shape
+    return (
+        x.data_ptr(), _DTYPE_CODE[x.dtype], table.nbr.data_ptr(), table.deg.data_ptr(),
+        wk.data_ptr(), bad.data_ptr(), out.data_ptr(), n, table.k, f, plan.band, plan.rows,
+        plan.grid, counter, vec, stream,
+    )
+
+
+def guard_rows(k: int) -> int:
+    """Kernel 2.9's rows an item at most: as many as stage all their K slots
+    in one tile of the warp's :data:`BAND_WARP_STAGE` (the tile is a power of
+    two), so that an item takes one staging round trip; at most
+    :data:`GUARD_MAX_ROWS`, at least 1 (then a row wider than the stage
+    takes several tiles)."""
+    return max(1, min(GUARD_MAX_ROWS, BAND_WARP_STAGE // (1 << max(k - 1, 0).bit_length())))
+
+
+def _guard_launch(kernel: Kernel, table, wk: torch.Tensor, x: torch.Tensor, bad: torch.Tensor,
+                  band=None, passes=BAND_PASSES, max_rows=None) -> torch.Tensor:
+    """Launch kernel 2.9's walk on CUDA tensors, with the source rows' flags
+    ``bad`` of :func:`nonfinite_rows`; ``band``, ``passes`` and ``max_rows``
+    (by default :func:`guard_rows`) override :func:`band_plan`'s choice."""
+    out = _prepare(kernel, table, x, (wk, bad))
+    n, f = out.shape
+    if n == 0 or f == 0:
+        return out
+    if max_rows is None:
+        max_rows = guard_rows(table.k)
+    vec, plan = _plan(x, out, 1, band, passes, max_rows)
+    dev = x.device
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        kernel.launch(*_guard_args(table, wk, x, bad, out, vec, plan, counter.data_ptr(),
+                                   torch.cuda.current_stream(dev).cuda_stream))
+    return out
+
+
 def spmm_ell_all_slots(
     nbr: torch.Tensor, wk: torch.Tensor, x: torch.Tensor, *, table=None
 ) -> torch.Tensor:
     """``out[v] = sum over all K slots of wk[v, k] * x[nbr[v, k]]``, float32
     ``[N, F]``: the function of the JAX package's ELL prototype
     (``benchmarks/exp_spmm_pallas_proto.py::make_pallas_ell``), whose padded
-    slots carry ``nbr = 0, wk = 0`` and are summed like the others.
+    slots carry ``nbr = 0, wk = 0`` and are summed like the others (so a
+    zero weight over a non-finite value gives NaN, as ``0 * x`` does).
 
     ``nbr [N, K]`` int32, ``wk [N, K]`` float32, ``x [N_src, F]`` float32 or
     bfloat16; ``table`` is :func:`all_slots_table` of ``nbr`` (built here
-    when None).  On a CUDA tensor this launches kernel 2.6's static walk,
-    counted as kernel 2.9 (or raises); on a CPU tensor it runs
-    :func:`spmm_ell_weighted_plain`.
+    when None; its host check runs once per table, so pass it for repeated
+    calls).  On a CUDA tensor this launches kernel 2.9, the flag pass
+    :func:`nonfinite_rows` and then the band walk's guarded select, with no
+    host synchronisation, or raises; the result is kernel 2.6's static walk
+    bit for bit.  On a CPU tensor it runs :func:`spmm_ell_weighted_plain`.
     """
     if table is None:
         table = all_slots_table(nbr)
@@ -504,7 +597,7 @@ def spmm_ell_all_slots(
     _check_f32("wk", wk, tuple(nbr.shape), x)
     if x.device.type == "cpu":
         return spmm_ell_weighted_plain(table, wk, x, 1)
-    return _weighted_launch(SPMM_ELL_ALL_SLOTS, table, wk, x, 1)
+    return _guard_launch(SPMM_ELL_ALL_SLOTS, table, wk, x, nonfinite_rows(x))
 
 
 #: the schedules of the JAX package's ``spmm_ell_pallas``

@@ -40,9 +40,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    served from L2); then every route held in the edge cases and in those of
    the band walk (a ragged last band, W narrower than a band, F = 3);
    then kernel 2.9 (``spmm_ell_all_slots``, the ELL prototype of the JAX
-   package's benchmarks, on 2.6's static walk) at the prototype's run shape
-   (100k / 1M, F = 128), counted, held against its plain version and the
-   prototype's segment sum, and timed beside ``torch.sparse.mm``;
+   package's benchmarks: its flag pass ``nonfinite_rows``, then the band
+   walk's guarded select) at the prototype's run shape (100k / 1M, F =
+   128), counted, held bit for bit against 2.6's static walk on the same
+   table (also with Inf and NaN in the features), against its plain version
+   and the prototype's segment sum, checked for host synchronisation, held
+   in six edge cases (bf16, F = 3, F = 96 with 16-byte and scalar lanes,
+   K = 8), and timed (the entry, each launch, 2.6's static walk) beside
+   ``torch.sparse.mm``;
 4. the node path: ``Explainer._explain`` (the arrays behind
    ``Explainer.run``) on ``node_prediction`` for the repo's trained 36-node
    fixture (Shapley and community mode) and for GCN-128x2 on a 20k-node /
@@ -265,6 +270,7 @@ def all_kernels():
         "spmm_ell_weighted.v3": spmm_cuda.SPMM_ELL_WEIGHTED["v3"],
         "spmm_ell_weighted.fused": spmm_cuda.SPMM_ELL_WEIGHTED["fused"],
         "spmm_ell_all_slots": spmm_cuda.SPMM_ELL_ALL_SLOTS,
+        "nonfinite_rows": spmm_cuda.NONFINITE_ROWS,
     }
 
 
@@ -1551,6 +1557,70 @@ def phase_ladder(dev, graph, table, counts_out: dict) -> list:
     return records
 
 
+def hold_guard(got, static, plain, label) -> None:
+    """Kernel 2.9 against 2.6's static walk on the same table: bit for bit
+    (``torch.equal`` where not NaN, so zeros of either sign are equal, and
+    NaN at the same places), and NaN exactly where the plain version (the
+    multiply, ``0 * NaN`` kept) has it."""
+    import torch
+
+    torch.cuda.synchronize()
+    nan = torch.isnan(got)
+    if not torch.equal(nan, torch.isnan(plain)):
+        raise AssertionError(f"{label}: NaN entries differ from the plain version's")
+    if not torch.equal(nan, torch.isnan(static)):
+        raise AssertionError(f"{label}: NaN entries differ from 2.6's static walk")
+    if not torch.equal(got[~nan], static[~nan]):
+        raise AssertionError(
+            f"{label}: differs from 2.6's static walk by "
+            f"{(got[~nan] - static[~nan]).abs().max().item():.3e} (bit for bit expected)"
+        )
+
+
+def guard_case(dev, n, k, f, dtype, seed, label, misalign=False) -> None:
+    """Kernel 2.9 on a random table of the prototype's form: each row a
+    random number of weighted slots in front, the rest padding ``nbr = 0,
+    wk = 0`` (some ``-0.0``), a tenth of the front slots zero-weight
+    (interior zeros); ``x`` with Inf, -Inf and NaN in row 0 and a NaN in a
+    row that only an interior zero-weight slot names.  Held by
+    :func:`hold_guard`; ``misalign`` offsets ``x`` by one element (scalar
+    lanes at any F)."""
+    import numpy as np
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
+
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, k + 1, n)
+    front = np.arange(k)[None, :] < deg[:, None]
+    # row n - 1 is named by no slot but the one below
+    nbr_np = np.where(front, rng.integers(1, n - 1, (n, k)), 0).astype(np.int32)
+    wk_np = np.where(front, rng.normal(size=(n, k)), 0.0).astype(np.float32)
+    wk_np[front & (rng.random((n, k)) < 0.1)] = 0.0
+    wk_np[~front & (rng.random((n, k)) < 0.5)] = -0.0
+    # a row named only by one interior zero-weight slot, NaN in column f // 2
+    v = int(np.flatnonzero(deg >= 3)[0])
+    u = n - 1
+    nbr_np[v, 1], wk_np[v, 1] = u, 0.0
+    x_np = rng.normal(size=(n, f)).astype(np.float32)
+    x_np[0, 0], x_np[0, (1 % f)], x_np[0, (2 % f)] = np.inf, -np.inf, np.nan
+    x_np[u, f // 2] = np.nan
+    x = torch.from_numpy(x_np).to(dev, dtype)
+    if misalign:
+        buf = torch.empty(n * f + 1, dtype=dtype, device=dev)
+        buf[1:].copy_(x.view(-1))
+        x = buf[1:].view(n, f)
+    nbr, wk = torch.from_numpy(nbr_np).to(dev), torch.from_numpy(wk_np).to(dev)
+    table = sc.all_slots_table(nbr)
+    got = sc.spmm_ell_all_slots(nbr, wk, x, table=table)
+    hold_guard(got, sc.spmm_ell_weighted(table, wk, x, 1),
+               sc.spmm_ell_weighted_plain(table, wk, x, 1), label)
+    if not bool(torch.isnan(got[v, f // 2])):
+        raise AssertionError(f"{label}: the interior zero-weight slot's 0 * NaN is lost")
+    vec = 1 if x.data_ptr() % 16 or f % (16 // x.element_size()) else 16 // x.element_size()
+    log(f"{label}: N={n} K={k} F={f} {str(dtype).split('.')[-1]} vec={vec} "
+        f"NaN entries {int(torch.isnan(got).sum())}, bit for bit with 2.6's static walk ok")
+
+
 #: the ELL prototype's run shape (benchmarks/exp_spmm_pallas_run.py:15-22)
 PROTO_N, PROTO_E, PROTO_F = 100_000, 1_000_000, 128
 
@@ -1573,16 +1643,11 @@ def build_ell(snd, rcv, w, n, k_round=8):
     return nbr, wk, k
 
 
-def phase_all_slots(dev) -> dict:
-    """Kernel 2.9, the ELL prototype's all-slot sum, at its run shape (100k
-    nodes, 1M receiver-sorted edges, F = 128, float32, seed 0): one call of
-    ``spmm_ell_all_slots`` with the counts set to 0, held against the plain
-    version and against the prototype's reference (a segment sum over the
-    edges), then timed beside ``torch.sparse.mm`` on the CSR of ``wk``.
-    Returns the kernel's record."""
+def proto_inputs(dev):
+    """The prototype's run inputs, seed 0: (x, nbr, wk, K, snd, rcv, w) with
+    the edge lists as numpy arrays."""
     import numpy as np
     import torch
-    from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
 
     rng = np.random.default_rng(0)
     x_np = rng.normal(size=(PROTO_N, PROTO_F)).astype(np.float32)
@@ -1591,16 +1656,40 @@ def phase_all_slots(dev) -> dict:
     w_np = rng.random(PROTO_E).astype(np.float32)
     nbr_np, wk_np, k = build_ell(snd, rcv, w_np, PROTO_N)
     x = torch.from_numpy(x_np).to(dev)
-    nbr = torch.from_numpy(nbr_np).to(dev)
-    wk = torch.from_numpy(wk_np).to(dev)
+    return (x, torch.from_numpy(nbr_np).to(dev), torch.from_numpy(wk_np).to(dev), k, snd, rcv,
+            w_np)
+
+
+def phase_all_slots(dev, card: str) -> tuple:
+    """Kernel 2.9, the ELL prototype's all-slot sum, at its run shape (100k
+    nodes, 1M receiver-sorted edges, F = 128, float32, seed 0): one call of
+    ``spmm_ell_all_slots`` (the flag pass, then the guarded walk) with the
+    counts set to 0, held bit for bit against 2.6's static walk on the same
+    table and against the plain version and the prototype's segment sum;
+    again with Inf and NaN in row 0 (which only padded slots name) and with a
+    NaN row that only an interior zero-weight slot names; one call under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation);
+    then the edge cases (bf16, F = 3, F = 96 with scalar lanes, K = 8).  The
+    entry, the flag pass and the walk are timed apart, in turns with 2.6's
+    static walk on the same table (2.9's former route), the same with its
+    padding spread over the rows, and ``torch.sparse.mm``.  Returns the
+    records of 2.9 and of its flag pass."""
+    import numpy as np
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
+
+    x, nbr, wk, k, snd, rcv, w_np = proto_inputs(dev)
     table = sc.all_slots_table(nbr)
+    table.deg  # the table's one host check, before the counted call
 
     reset_counts()
     got = sc.spmm_ell_all_slots(nbr, wk, x, table=table)
     counts = read_counts()
-    expect_counts(counts, {"spmm_ell_all_slots": 1}, "kernel 2.9 (ELL prototype's run)")
+    expect_counts(counts, {"spmm_ell_all_slots": 1, "nonfinite_rows": 1},
+                  "kernel 2.9 (ELL prototype's run)")
     want = sc.spmm_ell_weighted_plain(table, wk, x, 1)
     err = hold_gather_sum(table, got, want, "2.9 prototype shape")
+    hold_guard(got, sc.spmm_ell_weighted(table, wk, x, 1), want, "2.9 prototype shape")
     # the prototype's own reference: the weighted segment sum over the edges
     ref = torch.zeros_like(got).index_add_(
         0, torch.from_numpy(rcv).to(dev).long(),
@@ -1609,63 +1698,139 @@ def phase_all_slots(dev) -> dict:
     ref_err = (got - ref).abs().max().item()
     if not torch.allclose(got, ref, rtol=1e-5, atol=1e-5):
         raise AssertionError(f"2.9: differs from the segment sum over the edges by {ref_err:.3e}")
+    bad = sc.nonfinite_rows(x)
+    if not torch.equal(bad, sc.nonfinite_rows_plain(x)) or bad.any():
+        raise AssertionError("2.9 flag pass: differs from its plain version on finite x")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = sc.spmm_ell_all_slots(nbr, wk, x, table=table)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not torch.equal(again, got):
+        raise AssertionError("2.9: a second call differs")
+    log("kernel 2.9: bit for bit with 2.6's static walk; no host synchronisation in the entry")
 
-    ms = cuda_ms(lambda: sc.spmm_ell_all_slots(nbr, wk, x, table=table), 20)
-    plain_ms = cuda_ms(lambda: sc.spmm_ell_weighted_plain(table, wk, x, 1), 3)
-    # yardstick only: cuSPARSE through torch.sparse.mm on the CSR of wk's
-    # nonzero slots (the padded slots weigh 0)
-    nz = wk != 0
+    # non-finite features: Inf, -Inf and NaN in row 0, which only the
+    # padded slots (weight 0) name, so every padded row comes out NaN there
+    x0 = x.clone()
+    x0[0, :3] = torch.tensor([float("inf"), float("-inf"), float("nan")], device=dev)
+    bad0 = sc.nonfinite_rows(x0)
+    if not torch.equal(bad0, sc.nonfinite_rows_plain(x0)) or int(bad0.sum()) != 1:
+        raise AssertionError("2.9 flag pass: row 0 not flagged alone")
+    got0 = sc.spmm_ell_all_slots(nbr, wk, x0, table=table)
+    hold_guard(got0, sc.spmm_ell_weighted(table, wk, x0, 1),
+               sc.spmm_ell_weighted_plain(table, wk, x0, 1), "2.9 Inf/NaN in row 0")
+    padded_rows = int((wk == 0).any(dim=1).sum())
+    if int(torch.isnan(got0[:, :3]).all(dim=1).sum()) != padded_rows:
+        raise AssertionError("2.9: the padded rows do not all keep 0 * Inf/NaN")
+    # a NaN row that only an interior zero-weight slot names
+    front = (wk != 0).sum(dim=1)
+    v = int(torch.nonzero(front >= 3)[0])
+    named = torch.zeros(PROTO_N, dtype=torch.bool, device=dev)
+    named[nbr[wk != 0].long()] = True
+    named[0] = True
+    u = int(torch.nonzero(~named)[0])
+    nbr1, wk1, x1 = nbr.clone(), wk.clone(), x.clone()
+    nbr1[v, 1], wk1[v, 1], x1[u, 5] = u, 0.0, float("nan")
+    table1 = sc.all_slots_table(nbr1)
+    got1 = sc.spmm_ell_all_slots(nbr1, wk1, x1, table=table1)
+    hold_guard(got1, sc.spmm_ell_weighted(table1, wk1, x1, 1),
+               sc.spmm_ell_weighted_plain(table1, wk1, x1, 1), "2.9 NaN behind an interior zero")
+    if int(torch.isnan(got1).sum()) != 1 or not bool(torch.isnan(got1[v, 5])):
+        raise AssertionError("2.9: NaN behind an interior zero-weight slot not at its place alone")
+    log(f"kernel 2.9: Inf/NaN in row 0 -> NaN on {padded_rows} padded rows; NaN row {u} behind "
+        f"row {v}'s interior zero-weight slot -> NaN at ({v}, 5) alone; bit for bit ok")
+    del x0, got0, nbr1, wk1, x1, got1, table1
+    for args in ((5000, 32, 128, torch.bfloat16, 31, "2.9 bf16 F=128"),
+                 (5000, 16, 3, torch.float32, 32, "2.9 F=3"),
+                 (5000, 16, 3, torch.bfloat16, 33, "2.9 bf16 F=3"),
+                 (5000, 32, 96, torch.float32, 34, "2.9 F=96"),
+                 (5000, 8, 128, torch.float32, 36, "2.9 K=8")):
+        guard_case(dev, *args)
+    guard_case(dev, 5000, 32, 96, torch.float32, 35, "2.9 F=96 scalar lanes", misalign=True)
+
+    # timings, in turns: the entry, its two launches, 2.6's static walk on
+    # the same table (2.9's former route), the same with each padded slot
+    # naming its own row (weight 0 all the same: the same function on finite
+    # features), and cuSPARSE through torch.sparse.mm on the CSR of wk's
+    # nonzero slots (a yardstick only)
+    pad = wk == 0
+    own = torch.arange(PROTO_N, dtype=torch.int32, device=dev)[:, None].expand_as(nbr)
+    spread = torch.where(pad, own, nbr).contiguous()
+    spread_table = sc.all_slots_table(spread)
+    if not torch.allclose(sc.spmm_ell_weighted(spread_table, wk, x, 1), want, rtol=1e-5, atol=1e-5):
+        raise AssertionError("2.9: the spread padding changes the sum")
+    nz = ~pad
     rows = torch.arange(PROTO_N, device=dev)[:, None].expand_as(nbr)[nz]
     adj = torch.sparse_coo_tensor(
         torch.stack([rows, nbr[nz].long()]), wk[nz], (PROTO_N, PROTO_N)
     ).coalesce().to_sparse_csr()
     if not torch.allclose(torch.sparse.mm(adj, x), want, rtol=1e-4, atol=1e-4):
         raise AssertionError("2.9: library yardstick computes another function")
-    library_ms = cuda_ms(lambda: torch.sparse.mm(adj, x), 20)
-    # where its time goes: the padded slots all name row 0, so their gathers
-    # hit one segment of each band in L2; the same sum with each padded slot
-    # naming its own row (weight 0 all the same: the same function on finite
-    # features) shows what that costs
-    pad = wk == 0
-    own = torch.arange(PROTO_N, dtype=torch.int32, device=dev)[:, None].expand_as(nbr)
-    spread = torch.where(pad, own, nbr).contiguous()
-    spread_table = sc.all_slots_table(spread)
-    spread_out = sc.spmm_ell_all_slots(spread, wk, x, table=spread_table)
-    if not torch.allclose(spread_out, want, rtol=1e-5, atol=1e-5):
-        raise AssertionError("2.9: the spread padding changes the sum")
-    del spread_out
-    spread_ms = cuda_ms(lambda: sc.spmm_ell_all_slots(spread, wk, x, table=spread_table), 20)
-    log(f"kernel 2.9: {int(pad.sum())} of {pad.numel()} slots are padding on row 0; "
-        f"the same sum with the padding spread over the rows' own indices takes "
-        f"{spread_ms:.4f} ms")
+    runs = in_turns({
+        "entry": lambda: sc.spmm_ell_all_slots(nbr, wk, x, table=table),
+        "flag pass": lambda: sc.nonfinite_rows(x),
+        "walk": lambda: sc._guard_launch(sc.SPMM_ELL_ALL_SLOTS, table, wk, x, bad),
+        "2.6 static walk": lambda: sc.spmm_ell_weighted(table, wk, x, 1),
+        "2.6 static walk, padding spread": lambda: sc.spmm_ell_weighted(spread_table, wk, x, 1),
+        "torch.sparse.mm": lambda: torch.sparse.mm(adj, x),
+    }, 20)
+    ms = {name: float(np.mean(v)) for name, v in runs.items()}
+    plain_ms = cuda_ms(lambda: sc.spmm_ell_weighted_plain(table, wk, x, 1), 3)
+    flag_plain_ms = cuda_ms(lambda: sc.nonfinite_rows_plain(x), 20)
     # least bytes: each source row that a slot names read once, every slot's
-    # index and weight once (all K are summed), the output written once;
+    # index and weight once (all K are looked at), the output written once;
     # a multiply and an add per slot and column
     uniq = int(torch.unique(nbr).numel())
     nbytes = uniq * PROTO_F * 4 + PROTO_N * k * 8 + PROTO_N * PROTO_F * 4
     ops = 2 * PROTO_N * k * PROTO_F
     t = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / F32_OPS_PER_S}
     bound_by = max(t, key=t.get)
-    log(f"kernel 2.9 at the prototype's shape N={PROTO_N} E={PROTO_E} K={k} F={PROTO_F}: "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-        f"bound_ms={t[bound_by] * 1e3:.4f} ({bound_by}, {nbytes / 1e9:.3f} GB) "
-        f"max_abs_err={err:.3e} (plain), {ref_err:.3e} (segment sum) ok")
-    return {
+    # the flag pass: x read once, one byte a row written; a test per element
+    flag_bytes = x.numel() * 4 + PROTO_N
+    tf = {"bytes": flag_bytes / HBM_BYTES_PER_S, "operations": x.numel() / F32_OPS_PER_S}
+    flag_bound_by = max(tf, key=tf.get)
+    log(f"kernel 2.9 at the prototype's shape N={PROTO_N} E={PROTO_E} K={k} F={PROTO_F} "
+        f"({int(pad.sum())} of {pad.numel()} slots padding on row 0), {card}: "
+        + " ".join(f"{name}={v:.4f} ms {[round(r, 4) for r in runs[name]]};"
+                   for name, v in ms.items())
+        + f" plain_ms={plain_ms:.4f} bound_ms={t[bound_by] * 1e3:.4f} ({bound_by}, "
+        f"{nbytes / 1e9:.3f} GB); flag pass plain_ms={flag_plain_ms:.4f} "
+        f"bound_ms={tf[flag_bound_by] * 1e3:.4f}; max_abs_err={err:.3e} (plain), "
+        f"{ref_err:.3e} (segment sum) ok")
+    rec = {
         "name": "spmm_ell_all_slots (2.9)",
         "route": "cuda",
-        "source": f"{PKG}/ops/csrc/spmm_ell_weighted.cu",
+        "source": f"{PKG}/ops/csrc/spmm_ell_all_slots.cu",
         "replaces": "benchmarks/exp_spmm_pallas_proto.py:21",
         "launches": counts["spmm_ell_all_slots"],
         "max_abs_err": err,
-        "ms": ms,
+        "ms": ms["entry"],
         "plain_ms": plain_ms,
         "bound_ms": t[bound_by] * 1e3,
         "bound_by": bound_by,
-        "library_ms": library_ms,
+        "library_ms": ms["torch.sparse.mm"],
         "library_note": "torch.sparse.mm on the CSR of wk's nonzero slots",
+        "ms_note": "the entry: the flag pass, then the guarded walk",
+        "walk_ms": ms["walk"],
+        "static_walk_ms": ms["2.6 static walk"],
+        "spread_padding_ms": ms["2.6 static walk, padding spread"],
         "padded_slots": int(pad.sum()),
-        "spread_padding_ms": spread_ms,
     }
+    rec_flag = {
+        "name": "nonfinite_rows (2.9 flag pass)",
+        "route": "cuda",
+        "source": f"{PKG}/ops/csrc/spmm_ell_all_slots.cu",
+        "replaces": "benchmarks/exp_spmm_pallas_proto.py:21",
+        "launches": counts["nonfinite_rows"],
+        "max_abs_err": 0.0,
+        "ms": ms["flag pass"],
+        "plain_ms": flag_plain_ms,
+        "bound_ms": tf[flag_bound_by] * 1e3,
+        "bound_by": flag_bound_by,
+        "library_ms": None,
+    }
+    return rec, rec_flag
 
 
 def phase_model_families(dev, config) -> None:
@@ -1768,7 +1933,7 @@ def main() -> int:
     ladder = phase_ladder(dev, graph, table, ladder_counts)
     rec_tr["launches"] = ladder_counts["batched_gather_sum.transpose"]
     del graph, table
-    rec_29 = phase_all_slots(dev)
+    rec_29, rec_flag = phase_all_slots(dev, card)
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     reset_counts()
@@ -1785,8 +1950,8 @@ def main() -> int:
     expect_counts(read_counts(), {}, "model families (generic forward, segment operations)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
-    print(json.dumps({"kernels": [rec_21, rec_op, rec_22, rec_23, rec_24, rec_tr] + ladder + [rec_29]}),
-          flush=True)
+    records = [rec_21, rec_op, rec_22, rec_23, rec_24, rec_tr] + ladder + [rec_29, rec_flag]
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -22,7 +22,19 @@ built from a copy of the header in which each row's whole segment of a
 slot (256 bytes) comes in by one ``cp.async.bulk``, completed on an
 ``mbarrier``, in place of 16 lanes' 16-byte ``cp.async``; held bit for bit
 against the port's call and timed in turns with it, at the default plan.
-Without CUDA it exits with code 2.
+
+Then kernel 2.9 (``spmm_ell_all_slots``, the guarded walk) at the ELL
+prototype's run shape (``chip_smoke.proto_inputs``: 100k nodes, 1M edges,
+K = 32, F = 128, float32, seed 0): the plans of ``PLANS_29`` (two 64-column
+bands or one 128-column band, and rows per item), each held bit for bit
+against the port's call and timed in turns beside the flag pass and the
+entry; then three variants, each built from a copy of the header and timed
+in turns with the port's walk at each band: ``TRAILING`` (a row's slots
+stay in place and only those after its last taken slot are dropped, in
+place of the compaction), ``STREAM`` (a lane group's slots gathered across
+row boundaries in full batches, in place of a round trip per row) and
+``PREFETCH`` (an L2 prefetch of the next item's indices and weights).  Without CUDA
+it exits with code 2.
 """
 
 from __future__ import annotations
@@ -37,6 +49,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: (band columns, passes of a warp over an item): 16 and 32 rows an item at
 #: 32 and at the chosen 64 columns, and 32 rows at 48 columns
 PLANS = ((32, 4), (32, 8), (48, 16), (64, 8), (64, 16))
+#: kernel 2.9's (band columns, passes): two 64-column bands a row (32 and 16
+#: rows an item), one 128-column band (a warp a row: 32, 16 and 8 rows); at
+#: K = 32 the port's rule (``spmm_cuda.guard_rows``) allows 16
+PLANS_29 = ((64, 16), (64, 8), (128, 32), (128, 16), (128, 8))
 
 _BULK_HELPERS = r"""
 // The bulk-copy variant: one lane of a row's group copies each slot's
@@ -139,30 +155,163 @@ VARIANT = [
 ]
 
 
-def build_variant(cb) -> ctypes.CDLL:
-    """``gather_sum_static.cu`` built against the bulk-copy header, into
-    ``build/ell_band_sweep/``; prints the compiler's register report."""
+#: the trailing-zero variant of kernel 2.9: each staged slot stays in its
+#: place and a row's count is one past its last taken slot, so interior
+#: zero-weight slots over finite rows are gathered and add 0 * x
+TRAILING = [
+    ("  return make_int2(run + __popc(m & ((1u << lane) - 1u)), run + __popc(m));",
+     "  return make_int2(off + lane - g0, m ? off + 32 - __clz(m) - g0 : run);"),
+    ("          if (take[t]) {\n            sm.nbr[r * kt + p.x] = pn[t];",
+     "          if (i < nrows * kt && j0 + (i - r * kt) < sm.deg[r]) {\n"
+     "            sm.nbr[r * kt + p.x] = pn[t];"),
+]
+
+
+_STREAM_HELPERS = r"""// kGuard with 16-byte lanes: the taken slots of one lane group's rows (r0,
+// r0 + step, ... below nrows; cnt[r] of them at r * kt of the staged run)
+// gathered as one stream, kBatch at a time, so that a round trip may finish
+// one row and start the next and every trip but the group's last carries
+// kBatch slots.  Each row's slots are added in slot order, from +0 (in a
+// later slot tile, from the partial sum the earlier one stored), and the row
+// is stored once its last slot is added; a row with no taken slot stores +0
+// in the first tile and keeps its partial sum in a later one.  out: this
+// lane's columns of the item's first row.
+template <typename T, int VEC>
+__device__ __forceinline__ void guard_stream(const T* __restrict__ feats, int64_t w, int64_t col,
+                                             float* out, const int32_t* rn, const float* rw,
+                                             const int32_t* cnt, int kt, int r0, int step,
+                                             int nrows, int j0, uint4* gather, int lane) {
+  using L = Lane<T, VEC>;
+  // the first row at or after r with a taken slot (nrows where none is left)
+  auto next_row = [&](int r) {
+    while (r < nrows && cnt[r] == 0) r += step;
+    return r;
+  };
+  if (j0 == 0) {
+    const float zero[VEC] = {};
+    for (int r = r0; r < nrows; r += step) {
+      if (cnt[r] == 0) store_stream<VEC>(out + r * w, zero);
+    }
+  }
+  int ri = next_row(r0), ji = 0;  // the next slot to copy
+  int rs = ri, js = 0;            // the next slot to add
+  float acc[VEC];
+  while (ri < nrows) {
+    // fill the batch from the rows' runs: the copies of one run issue
+    // together (their indices are independent reads), and a row's count is
+    // read once per run, not per slot
+    int nb = 0;
+    while (nb < kBatch && ri < nrows) {
+      const int c = cnt[ri];
+      const int m = min(c - ji, kBatch - nb);
+      const int32_t* src = rn + ri * kt + ji;
+      for (int u = 0; u < m; ++u) {
+        copy16_if(true, gather + (nb + u) * 32 + lane,
+                  feats + static_cast<int64_t>(src[u]) * w + col);
+      }
+      nb += m;
+      ji += m;
+      if (ji == c) {
+        ri = next_row(ri + step);
+        ji = 0;
+      }
+    }
+    copies_landed();
+    for (int u0 = 0; u0 < nb;) {
+      const int c = cnt[rs];
+      const int m = min(c - js, nb - u0);
+      float* o = out + rs * w;
+      if (js == 0) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] = j0 == 0 ? 0.0f : o[i];
+      }
+      const float* wts = rw + rs * kt + js;
+      for (int u = 0; u < m; ++u) L::fma(gather[(u0 + u) * 32 + lane], wts[u], acc);
+      u0 += m;
+      js += m;
+      if (js == c) {
+        store_stream<VEC>(o, acc);
+        rs = next_row(rs + step);
+        js = 0;
+      }
+    }
+  }
+}
+
+"""
+
+#: the stream variant of kernel 2.9: a lane group's taken slots of all its
+#: rows gathered kBatch at a time across row boundaries (so that every round
+#: trip but the last is full), each row's run issued as one burst, in place
+#: of a round trip per row
+STREAM = [
+    ("// The walk.  w_slot is null under kUnit",
+     _STREAM_HELPERS + "// The walk.  w_slot is null under kUnit"),
+    ("      if (on) {\n        for (int r = lrow; r < nrows; r += per_pass) {",
+     "      if constexpr (WT == Weights::kGuard && kAsync<T, VEC>) {\n"
+     "        if (on) {\n"
+     "          guard_stream<T, VEC>(feats, w, col, out + v0 * w + col, sm.nbr, sm.w, cnt, kt,\n"
+     "                               lrow, per_pass, nrows, j0, sm.gather, lane);\n"
+     "        }\n"
+     "      } else if (on) {\n        for (int r = lrow; r < nrows; r += per_pass) {"),
+]
+
+_PREFETCH_HELPER = r"""// A hint to bring the 128-byte line at p into L2.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
+}
+
+"""
+_PREFETCH = r"""        if constexpr (WT == Weights::kGuard) {
+          // and its indices and weights, fetched into L2, so that its
+          // staging waits on L2 and not on device memory
+          if (next < items) {
+            const int64_t nv0 = next % chunks * rows;
+            const int64_t base = nv0 * k, len = (nv0 + rows < n ? rows : n - nv0) * k;
+            for (int64_t e = lane * 32; e < len; e += 32 * 32) {
+              prefetch_l2(nbr + base + e);
+              prefetch_l2(w_slot + base + e);
+            }
+          }
+        }
+"""
+
+#: kernel 2.9 with an L2 prefetch of the next item's indices and weights,
+#: issued where the walk reads the next item's degrees ahead
+PREFETCH = [
+    ("// This thread's cp.async copies have landed",
+     _PREFETCH_HELPER + "// This thread's cp.async copies have landed"),
+    ("        pscale = first_scale(next);\n",
+     "        pscale = first_scale(next);\n" + _PREFETCH),
+]
+
+
+def build_variant(cb, variant, source: str, name: str) -> ctypes.CDLL:
+    """``csrc/<source>`` built against a copy of ``ell_band.cuh`` with the
+    ``variant``'s (anchor, replacement) pairs applied, into
+    ``build/ell_band_sweep/lib<name>.so``; prints the compiler's register
+    report."""
     import chip_smoke as cs
 
     out_dir = os.path.join(os.path.dirname(cb.BUILD_DIR), "ell_band_sweep")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(cb.CSRC, "ell_band.cuh")) as f:
         text = f.read()
-    for old, new in VARIANT:
+    for old, new in variant:
         if text.count(old) != 1:
-            raise RuntimeError(f"bulk variant: anchor {old[:40]!r} is not in the header once")
+            raise RuntimeError(f"{name}: anchor {old[:40]!r} is not in the header once")
         text = text.replace(old, new)
     with open(os.path.join(out_dir, "ell_band.cuh"), "w") as f:
         f.write(text)
-    src = os.path.join(out_dir, "gather_sum_static.cu")
-    shutil.copy(os.path.join(cb.CSRC, "gather_sum_static.cu"), src)
-    so = os.path.join(out_dir, "libgather_sum_static_bulk.so")
+    src = os.path.join(out_dir, source)
+    shutil.copy(os.path.join(cb.CSRC, source), src)
+    so = os.path.join(out_dir, f"lib{name}.so")
     proc = subprocess.run([cb._nvcc(), *cb.NVCC_FLAGS, "-o", so, src],
                           capture_output=True, text=True)
     if proc.returncode:
-        raise RuntimeError(f"bulk variant does not build:\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"{name} does not build:\n{proc.stderr[-4000:]}")
     for line in cs.ptxas_summary(proc.stderr):
-        print(f"  bulk variant: {line}", flush=True)
+        print(f"  {name}: {line}", flush=True)
     return ctypes.CDLL(so)
 
 
@@ -185,6 +334,64 @@ def same(a, b) -> bool:
     import torch
 
     return torch.equal(torch.nan_to_num(a, nan=7.0), torch.nan_to_num(b, nan=7.0))
+
+
+def print_turns(label: str, ms: dict, read: int) -> None:
+    """The best of each call's rounds, its gather rate (``read`` bytes over
+    that time) and every round."""
+    for name, runs in ms.items():
+        best = min(runs)
+        print(f"{label}{name}: {best:.4f} ms, gather {read / best / 1e6:.1f} GB/s; "
+              f"all runs {[round(v, 4) for v in runs]}", flush=True)
+
+
+def sweep_all_slots() -> None:
+    """Kernel 2.9's plans and its trailing-zero variant at the prototype's
+    shape (see the head of this file)."""
+    import torch
+    import chip_smoke as cs
+    from bikg_graph_explainability_public_tpu_torch.ops import cuda_build as cb
+    from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
+
+    dev = torch.device("cuda", 0)
+    x, nbr, wk, _, _, _, _ = cs.proto_inputs(dev)
+    table = sc.all_slots_table(nbr)
+    bad = sc.nonfinite_rows(x)
+    want = sc.spmm_ell_all_slots(nbr, wk, x, table=table)
+    n, f = x.shape
+    read = int((wk != 0).sum()) * f * x.element_size()  # the taken slots' segments
+    sms = sc._sm_count(dev.index)
+    walk = sc.SPMM_ELL_ALL_SLOTS
+    calls = {"entry (flag pass + walk)": lambda: sc.spmm_ell_all_slots(nbr, wk, x, table=table),
+             "flag pass": lambda: sc.nonfinite_rows(x)}
+    for band, passes in PLANS_29:
+        rows = sc.band_plan(n, f, x.element_size(), 4, sms, band, passes,
+                            sc.GUARD_MAX_ROWS).rows
+        call = (lambda band=band, passes=passes:
+                sc._guard_launch(walk, table, wk, x, bad, band, passes, sc.GUARD_MAX_ROWS))
+        if not same(call(), want):
+            raise AssertionError(f"2.9 band={band} passes={passes}: differs from the port's call")
+        calls[f"walk band={band} rows={rows}"] = call
+    print_turns("2.9 ", cs.in_turns(calls, 20, rounds=4), read)
+
+    variants = {
+        name: Variant(build_variant(cb, anchors, "spmm_ell_all_slots.cu",
+                                    f"spmm_ell_all_slots_{tag}").spmm_ell_all_slots, walk)
+        for name, tag, anchors in (("trailing zeros only", "trailing", TRAILING),
+                                   ("stream across rows", "stream", STREAM),
+                                   ("L2 prefetch", "prefetch", PREFETCH))
+    }
+    calls = {}
+    for band in (64, 128):
+        calls[f"band={band} port"] = (
+            lambda band=band: sc._guard_launch(walk, table, wk, x, bad, band))
+        for name, kernel in variants.items():
+            call = (lambda band=band, kernel=kernel:
+                    sc._guard_launch(kernel, table, wk, x, bad, band))
+            if not same(call(), want):
+                raise AssertionError(f"2.9 {name} band={band}: differs from the port's call")
+            calls[f"band={band} {name}"] = call
+    print_turns("2.9 walk ", cs.in_turns(calls, 20, rounds=4), read)
 
 
 def main() -> int:
@@ -246,13 +453,9 @@ def main() -> int:
         for name, call in calls.items():
             if not same(call(), want):
                 raise AssertionError(f"{mode} {name}: differs from the port's call")
-        ms = cs.in_turns(calls, 20, rounds=4)
-        for name in calls:
-            best = min(ms[name])
-            print(f"{mode} {name}: {best:.4f} ms, gather {read * 4 / best / 1e6:.1f} GB/s; "
-                  f"all runs {[round(v, 4) for v in ms[name]]}", flush=True)
+        print_turns(f"{mode} ", cs.in_turns(calls, 20, rounds=4), read * 4)
 
-    lib = build_variant(cb)
+    lib = build_variant(cb, VARIANT, "gather_sum_static.cu", "gather_sum_static_bulk")
     bulk = {"valid (2.5)": Variant(lib.ell_valid_sum, sc.ELL_VALID_SUM["v6"]),
             "scaled (2.3)": Variant(lib.gather_sum_static, sc.GATHER_SUM_STATIC)}
     calls = {}
@@ -264,12 +467,9 @@ def main() -> int:
             lambda kernel=kernel, scale=scale: sc._static_launch(kernel, table, feats, b, scale))
         if not same(calls[f"{mode} cp.async.bulk"](), port()):
             raise AssertionError(f"bulk variant {mode}: differs from the port's call")
-    ms = cs.in_turns(calls, 20, rounds=4)
-    for name in calls:
-        best = min(ms[name])
-        print(f"bulk variant, {name}: {best:.4f} ms, "
-              f"gather {read_valid * 4 / best / 1e6:.1f} GB/s; "
-              f"all runs {[round(v, 4) for v in ms[name]]}", flush=True)
+    print_turns("bulk variant, ", cs.in_turns(calls, 20, rounds=4), read_valid * 4)
+    del feats, weights, table
+    sweep_all_slots()
     return 0
 
 

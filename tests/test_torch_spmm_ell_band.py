@@ -173,6 +173,7 @@ KERNELS = {
     "spmm_ell_weighted.v3": sc.SPMM_ELL_WEIGHTED["v3"],
     "spmm_ell_weighted.fused": sc.SPMM_ELL_WEIGHTED["fused"],
     "spmm_ell_all_slots": sc.SPMM_ELL_ALL_SLOTS,
+    "nonfinite_rows": sc.NONFINITE_ROWS,
 }
 
 
@@ -390,7 +391,8 @@ def test_sample_major_walk_reads_each_lanes_sample(b, f, dtype):
 
 
 # ---------------------------------------------------------------------------
-# kernel 2.9: the ELL prototype's all-slot sum on 2.6's static walk
+# kernel 2.9: the ELL prototype's all-slot sum (the flag pass and the guarded
+# walk on the card; tests/test_torch_spmm_ell_all_slots.py holds its parts)
 
 
 def _build_ell(snd, rcv, w, n, k_round=8):
@@ -409,12 +411,28 @@ def _build_ell(snd, rcv, w, n, k_round=8):
     return nbr, wk, k
 
 
-@pytest.mark.parametrize("n,e,f", [(2000, 20000, 128), (500, 3000, 256), (300, 600, 128)])
-def test_all_slots_matches_the_prototype_formula(n, e, f):
+@pytest.mark.parametrize("n,e,f,case", [
+    pytest.param(2000, 20000, 128, "finite", id="2000-20000-128"),
+    pytest.param(500, 3000, 256, "finite", id="500-3000-256"),
+    pytest.param(300, 600, 128, "finite", id="300-600-128"),
+    pytest.param(300, 600, 128, "row0_inf_ninf_nan", id="300-600-128-row0_inf_ninf_nan"),
+    pytest.param(300, 600, 128, "nan_behind_interior_zero",
+                 id="300-600-128-nan_behind_interior_zero"),
+    pytest.param(300, 600, 128, "zero_row_on_nan", id="300-600-128-zero_row_on_nan"),
+    pytest.param(300, 600, 128, "negative_zero_weights", id="300-600-128-negative_zero_weights"),
+    pytest.param(300, 600, 128, "finite_control", id="300-600-128-finite_control"),
+])
+def test_all_slots_matches_the_prototype_formula(n, e, f, case):
     """``spmm_ell_all_slots`` against ``out[v] = sum_k wk[v, k] *
     x[nbr[v, k]]`` over all K slots in float64, on the prototype's seeded
     inputs (the prototype takes no ``interpret`` flag, so its formula is the
-    reference); the padded slots are summed too."""
+    reference); the padded slots are summed too, so ``0 * Inf`` and
+    ``0 * NaN`` give NaN.  The non-finite cases: +Inf, -Inf and NaN in row
+    0, which only padded slots name; NaN in a row that only an interior
+    zero-weight slot names; a row whose weights are all 0 and name a NaN
+    row; ``-0.0`` weights (padding and interior) with Inf in row 0; and a
+    finite control built the same way.  NaN where the formula has NaN, the
+    rest within ``rtol/atol 1e-5``."""
     rng = np.random.default_rng(0)
     x = rng.normal(size=(n, f)).astype(np.float32)
     snd = rng.integers(0, n, e).astype(np.int32)
@@ -422,10 +440,36 @@ def test_all_slots_matches_the_prototype_formula(n, e, f):
     w = rng.random(e).astype(np.float32)
     nbr, wk, k = _build_ell(snd, rcv, w, n)
     assert (wk == 0).any()  # padded slots
-    want = (wk[:, :, None].astype(np.float64) * x[nbr].astype(np.float64)).sum(axis=1)
+    deg = (wk != 0).sum(axis=1)
+    named = np.zeros(n, bool)
+    named[nbr[wk != 0]] = True
+    named[0] = True
+    if case == "row0_inf_ninf_nan":
+        x[0, :3] = [np.inf, -np.inf, np.nan]
+    elif case == "nan_behind_interior_zero":
+        v, u = int(np.flatnonzero(deg >= 3)[0]), int(np.flatnonzero(~named)[0])
+        nbr[v, 1], wk[v, 1] = u, 0.0
+        x[u, 5] = np.nan
+    elif case == "zero_row_on_nan":
+        v, u = int(np.flatnonzero(deg >= 2)[0]), int(np.flatnonzero(~named)[0])
+        nbr[v, : deg[v]], wk[v] = u, 0.0
+        x[u, 7] = np.nan
+    elif case == "negative_zero_weights":
+        wk[wk == 0] = -0.0
+        wk[np.flatnonzero(deg >= 3), 1] = -0.0
+        x[0, 1] = np.inf
+    elif case == "finite_control":
+        wk[np.flatnonzero(deg >= 3), 1] = 0.0
+    with np.errstate(invalid="ignore"):
+        want = (wk[:, :, None].astype(np.float64) * x[nbr].astype(np.float64)).sum(axis=1)
     got = sc.spmm_ell_all_slots(torch.from_numpy(nbr), torch.from_numpy(wk), torch.from_numpy(x))
     assert got.dtype == torch.float32 and got.shape == (n, f)
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got.numpy()), nan)
+    assert nan.any() == (case not in ("finite", "finite_control"))  # -0.0 * Inf is NaN too
+    np.testing.assert_allclose(got.numpy()[~nan], want[~nan], rtol=1e-5, atol=1e-5)
+    if case == "nan_behind_interior_zero":
+        assert np.argwhere(nan).tolist() == [[v, 5]]
 
 
 def test_all_slots_table_and_refusals():
@@ -437,10 +481,11 @@ def test_all_slots_table_and_refusals():
     assert (table.deg == 8).all() and table.n_src == int(nbr.max()) + 1
     assert table.valid.shape == (50, 8) and (table.valid == 1).all()
     x, wk = torch.ones((40, 16)), torch.ones((50, 8))
-    before = sc.SPMM_ELL_ALL_SLOTS.launches
+    before = sc.SPMM_ELL_ALL_SLOTS.launches, sc.NONFINITE_ROWS.launches
     torch.testing.assert_close(sc.spmm_ell_all_slots(nbr, wk, x, table=table),
                                torch.full((50, 16), 8.0), rtol=0, atol=0)
-    assert sc.SPMM_ELL_ALL_SLOTS.launches == before
+    assert sc.nonfinite_rows(x).tolist() == [0] * 40
+    assert (sc.SPMM_ELL_ALL_SLOTS.launches, sc.NONFINITE_ROWS.launches) == before
     with pytest.raises(ValueError):
         sc.spmm_ell_all_slots(nbr, wk, x, table=sc.all_slots_table(nbr.clone()))
     with pytest.raises(ValueError):
