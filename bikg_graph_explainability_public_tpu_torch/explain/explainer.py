@@ -25,6 +25,7 @@ from ..graph import element_size, from_arrays
 from ..models.adapter import Model
 from ..ops.khop import extract_khop_subgraph
 from ..utils.device import resolve_device
+from ..utils.profiling import PhaseTimer
 from ..utils.prng import repeat_split_key_data
 from .masks import MaskSampler
 from .pathways import Pathways, pathway_dataframe
@@ -146,9 +147,11 @@ class Explainer:
         assert isinstance(names, list), "Element names is not list"
         assert isinstance(model, Model), "model must be a Model adapter"
 
-    def _explain(self, element, times: int = 1) -> Explanation:
+    def _explain(self, element, times: int = 1, return_diagnostics: bool = False):
         """Explain one node, edge or graph prediction; the arrays behind
-        :meth:`run`."""
+        :meth:`run`.  Returns an :class:`Explanation`, and with
+        ``return_diagnostics=True`` the pair (Explanation, diagnostics dict
+        of :meth:`run`)."""
         if "spmm_backend" in self.params:
             check_spmm_backend(self.params["spmm_backend"])
         graph = from_arrays(self.feat, self.edge_index, device=self.device)
@@ -201,7 +204,9 @@ class Explainer:
         width = sub_graph.e_pad if "edge" in self.problem else sub_graph.n_pad
         sampler = MaskSampler(elements, width, self.params, sub_pathway_inds)
         kd = repeat_split_key_data(int(self.params.get("seed", 0)), times)  # [T, 2, 2]
-        sampled = [sampler.sample(kd[i, 0]) for i in range(times)]
+        timer = PhaseTimer()
+        with timer.phase("mask_sampling"):
+            sampled = [sampler.sample(kd[i, 0]) for i in range(times)]
         batch_size = sampled[0][2]
         chunk = self.params.get("forward_chunk", None)
         stackable = all(
@@ -209,43 +214,70 @@ class Explainer:
         )
         # all repeats in one pass unless the [T, M, S] float32 mask stack
         # would exceed 1 GiB; then one repeat at a time
+        losses: List[np.ndarray] = []
+        best_epoch: List[int] = []
         if stackable and times * sampled[0][0].size * 4 <= (1 << 30):
-            result = train_model_repeats(
-                np.stack([s[0] for s in sampled]), self.model, sub_graph,
-                self.params, self.problem, query, elements, batch_size, kd,
-                chunk_size=chunk,
-            )
-            config_vals = list(result.weights.cpu().numpy()[:, :elements])
+            with timer.phase("surrogate_training", sync=self.device):
+                result = train_model_repeats(
+                    np.stack([s[0] for s in sampled]), self.model, sub_graph,
+                    self.params, self.problem, query, elements, batch_size, kd,
+                    chunk_size=chunk,
+                )
+                config_vals = list(result.weights.cpu().numpy()[:, :elements])
+            if return_diagnostics:
+                losses = list(result.losses.cpu().numpy())
+                best_epoch = [int(b) for b in result.best_epoch.cpu().numpy()]
         else:
             config_vals = []
             for i, (mask, _tags, bsz) in enumerate(sampled):
-                result = train_model(
-                    mask, self.model, sub_graph, self.params, self.problem,
-                    query, elements, bsz, kd[i, 1], chunk_size=chunk,
-                )
-                config_vals.append(result.weights.cpu().numpy()[:elements])
+                with timer.phase("surrogate_training", sync=self.device):
+                    result = train_model(
+                        mask, self.model, sub_graph, self.params, self.problem,
+                        query, elements, bsz, kd[i, 1], chunk_size=chunk,
+                    )
+                    config_vals.append(result.weights.cpu().numpy()[:elements])
+                if return_diagnostics:
+                    losses.append(result.losses.cpu().numpy())
+                    best_epoch.append(int(result.best_epoch))
 
         mean_cv, std_cv = weight_stacking(config_vals)
         pw_names = pw_scores = None
         if pathways is not None:
             pw_names, pw_scores = sub_pclass.aggregate_arrays(mean_cv, sub_pathway_inds)
-        return Explanation(
+        ex = Explanation(
             names=sub_names,
             mean=mean_cv,
             std=std_cv,
             pathway_names=pw_names,
             pathway_scores=pw_scores,
         )
+        if not return_diagnostics:
+            return ex
+        return ex, {
+            "losses": losses,
+            "best_epoch": best_epoch,
+            "phase_seconds": dict(timer.totals),
+            "num_elements": elements,
+            "subgraph_nodes": sub_graph.num_nodes,
+            "subgraph_edges": sub_graph.num_edges,
+        }
 
-    def run(self, element, times: int = 1):
+    def run(self, element, times: int = 1, return_diagnostics: bool = False):
         """Explain one node, edge or graph prediction.
 
         Returns (config_val_df, pathway_df): element scores and
         community-aggregated scores (None in Shapley mode), both sorted
-        descending (reference ``explainer.py:316-546``).
+        descending (reference ``explainer.py:316-546``).  With
+        ``return_diagnostics=True`` a third dict is returned: per-repeat
+        ``losses`` ([epochs] arrays) and ``best_epoch``, ``phase_seconds``
+        (``mask_sampling``, ``surrogate_training``), ``num_elements``,
+        ``subgraph_nodes`` and ``subgraph_edges`` (the reference computes
+        the losses but discards them, ``explainer.py:502``).
         """
-        ex = self._explain(element, times)
+        out = self._explain(element, times, return_diagnostics)
+        ex, diag = out if return_diagnostics else (out, None)
         pathway_df = None
         if ex.pathway_names is not None:
             pathway_df = pathway_dataframe(ex.pathway_names, ex.pathway_scores)
-        return config_val_dataframe(ex.mean, ex.std, ex.names), pathway_df
+        frames = (config_val_dataframe(ex.mean, ex.std, ex.names), pathway_df)
+        return frames + (diag,) if return_diagnostics else frames

@@ -62,16 +62,7 @@ class Pathways:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Mean config value per community as (names, scores), sorted by
         score descending, communities without elements dropped."""
-        vals = np.asarray(config_val, np.float64)
-        elements, seg, lengths = segment_table(community_inds)
-        sums = np.bincount(seg, weights=vals[elements], minlength=len(lengths))
-        with np.errstate(invalid="ignore"):
-            scores = np.where(lengths > 0, sums / np.maximum(lengths, 1), np.nan)
-        names = np.asarray(list(self.community_names), object)
-        keep = ~np.isnan(scores)
-        sc, nm = scores[keep], names[keep]
-        o = np.argsort(-sc, kind="stable")
-        return nm[o], sc[o]
+        return segment_means(config_val, self.community_names, segment_table(community_inds))
 
     def aggregate(self, config_val, community_inds: Sequence[Sequence[int]]):
         """:meth:`aggregate_arrays` as a DataFrame."""
@@ -84,6 +75,22 @@ def pathway_dataframe(names, scores):
     import pandas as pd
 
     return pd.DataFrame({"score": scores}, index=pd.Index(names, name="name"))
+
+
+def segment_means(config_val, community_names, table) -> Tuple[np.ndarray, np.ndarray]:
+    """Mean config value per community of a :func:`segment_table`, as
+    (names, scores) sorted by score descending; communities without
+    elements drop."""
+    elements, seg, lengths = table
+    vals = np.asarray(config_val, np.float64)
+    sums = np.bincount(seg, weights=vals[elements], minlength=len(lengths))
+    with np.errstate(invalid="ignore"):
+        scores = np.where(lengths > 0, sums / np.maximum(lengths, 1), np.nan)
+    names = np.asarray(list(community_names), object)
+    keep = ~np.isnan(scores)
+    sc, nm = scores[keep], names[keep]
+    o = np.argsort(-sc, kind="stable")
+    return nm[o], sc[o]
 
 
 def segment_table(

@@ -64,6 +64,45 @@ def _dense_adjacency(graph, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def dense_mask_scales(adj: torch.Tensor, m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The node-mask scales of the dense GCN layer, over any leading batch
+    axes: node-major float masks ``m [..., n, B]`` over adjacencies ``adj
+    [..., n, n]`` (``adj[v, u]`` counts the non-loop edges u -> v).
+    Returns ``(s, self_w)``, both ``[..., n, B]``: ``s = m * deg^-1/2`` and
+    ``self_w = 1 / deg`` with ``deg = 1 + m * (A @ m)``."""
+    # node-major in memory too: the scales' layout is what every layer's
+    # activations inherit, and A @ [n, B*C] needs them contiguous
+    m = m.contiguous()
+    deg = 1.0 + m * (adj @ m)
+    dis = torch.rsqrt(deg)
+    return m * dis, dis * dis
+
+
+def dense_gcn_layers(adj, s, self_w, xw0, convs) -> torch.Tensor:
+    """The mask-scaled dense GCN layers over any leading batch axes: each
+    conv is ``relu(s * (A @ (s * XW)) + self_w * XW + b)``.
+
+    ``adj [..., n, n]``; ``s`` and ``self_w [..., n, B]`` from
+    :func:`dense_mask_scales`; ``xw0 [..., n, C]``, the first conv's
+    transformed features, shared by every mask.  Activations are node-major
+    ``[..., n, B, C]``, so each aggregation is one product ``A @ [n, B*C]``;
+    returns the last layer's.
+    """
+    s, self_w = s[..., None], self_w[..., None]
+    h = None
+    for li, conv in enumerate(convs):
+        hw = xw0[..., None, :] if li == 0 else h[..., : conv.in_features] @ conv.weight.T
+        # one name for the activation-sized results, so each dies as soon
+        # as the next is made (the in-place adds round as the plain ones)
+        h = s * hw
+        h = s * (adj @ h.flatten(-2)).view(h.shape)
+        h += self_w * hw
+        if conv.bias is not None:
+            h += conv.bias
+        h = relu(h)
+    return h
+
+
 class QueryPlan(NamedTuple):
     """Receptive-field restriction for one query node.
 
@@ -273,30 +312,11 @@ class FastBatchedGCN:
     # dense-adjacency tier
     # ------------------------------------------------------------------
     def _dense_outputs(self, masks: torch.Tensor) -> torch.Tensor:
-        a = self.adj  # [N, N], a[v, u] = multiplicity of edge u -> v
-        m = masks.float()  # [B, N]
-        deg = 1.0 + m * (m @ a.T)
-        dis = torch.rsqrt(deg)  # [B, N]
-        self_w = dis * dis  # [B, N] = 1/deg
-        s = m * dis  # [B, N]
+        s, self_w = dense_mask_scales(self.adj, masks.float().t())  # [N, B]
         if self.backend == "pallas":
-            return self._dense_outputs_pallas(s, self_w)
-
-        def layer(feats_w):
-            # feats_w: [N, C] (first layer, batch-shared) or [B, N, C]
-            return s[:, :, None] * torch.matmul(a, s[:, :, None] * feats_w)
-
-        def finish(h, conv):
-            if conv.bias is not None:
-                h = h + conv.bias
-            return relu(h)
-
-        convs = self.model.conv
-        h = finish(layer(self.xw0) + self_w[:, :, None] * self.xw0, convs[0])
-        for conv in convs[1:]:
-            hw = h[..., : conv.in_features] @ conv.weight.T
-            h = finish(layer(hw) + self_w[:, :, None] * hw, conv)
-        return h
+            return self._dense_outputs_pallas(s.t().contiguous(), self_w.t().contiguous())
+        h = dense_gcn_layers(self.adj, s, self_w, self.xw0, self.model.conv)
+        return h.transpose(0, 1)  # [B, N, C]
 
     def _dense_outputs_pallas(self, s: torch.Tensor, self_w: torch.Tensor) -> torch.Tensor:
         """The fused layers: one kernel 2.1 call for the first conv layer,

@@ -4,7 +4,8 @@ Semantics match PyG ``k_hop_subgraph(ind, k, edge_index, relabel_nodes=True)``
 with the default ``flow="source_to_target"``: a node is kept iff it can reach
 the query along <=k directed edges; the edge set is the subgraph induced on
 kept nodes; kept nodes are relabelled in ascending original order.  The
-BFS and the gathers run on the host; the padded result is uploaded once.
+BFS and the gathers run on the host; the padded result is uploaded once,
+or not at all where the caller reads it on the host only.
 """
 
 from __future__ import annotations
@@ -35,11 +36,16 @@ def extract_khop_subgraph(
     n_hops: int,
     *,
     pad_mode: str = "multiple",
+    host_only: bool = False,
 ) -> Subgraph:
     """Extract the padded k-hop computational subgraph around ``query``, on
     the parent graph's device.  If the subgraph has no edges the query gets
     a single self-loop, mirroring the reference fallback
-    (``data.py:337-339``)."""
+    (``data.py:337-339``).
+
+    ``host_only=True`` skips the upload: the subgraph's fields are the
+    numpy arrays its host view holds, for callers that read the subgraph on
+    the host only (the multi-query stacker of :mod:`..explain.batch`)."""
     hv = host_view(graph)
     row_ptr, col, _eid = hv.csr()
     reach = (
@@ -86,11 +92,15 @@ def extract_khop_subgraph(
 
     parent_nodes = np.full((n_pad,), graph.n_pad, np.int64)
     parent_nodes[:n_sub] = kept_nodes
-    sub = graph_from_numpy(
-        graph.device, x=x, senders=new_snd, receivers=new_rcv,
-        node_mask=nmask, edge_mask=emask, node_type=nt, edge_type=new_et,
-        num_nodes=n_sub, num_edges=e_sub,
+    arrays = dict(
+        x=x, senders=new_snd, receivers=new_rcv, node_mask=nmask,
+        edge_mask=emask, node_type=nt, edge_type=new_et,
     )
+    if host_only:
+        sub = Graph(**arrays, num_nodes=n_sub, num_edges=e_sub)
+        sub.host._cache.update(arrays)
+    else:
+        sub = graph_from_numpy(graph.device, **arrays, num_nodes=n_sub, num_edges=e_sub)
     return Subgraph(
         graph=sub,
         parent_nodes=parent_nodes,

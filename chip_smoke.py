@@ -72,7 +72,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    edge and graph problems, GAT-128x2 on the 20k / 160k graph 4 node and 4
    edge queries, GATv2, SAGE, GraphConv and GIN one node query each, all
    through the generic batched forward (no hand kernel), checked against
-   the CPU.
+   the CPU;
+10. the multi-query path (``explain/batch.py::_explain_many``, the arrays
+   behind ``explain_many``; no hand kernel): the 36-node fixture in
+   Shapley mode, community mode, an edge and a graph problem, each held
+   against the CPU; then bench.py's workload (20k / 160k, GCN-128, 16
+   queries) in Shapley and community mode: explanations/s (best of 5
+   after a warm-up), the size buckets, a phase split, the device's busy
+   share in one traced call, peak memory, a launch-plan cache hit, and
+   every query held against the CPU.
+
+The node path (4) also prints ``Explainer._explain``'s diagnostics (its
+phase split) for each 20k / 160k query.
 
 Every path runs with all launch counts set to 0 just before it and read
 just after.  The line before the last is ``{"kernels": [...]}``; the last
@@ -138,9 +149,10 @@ def random_graph(n: int, e: int, seed: int):
     return feat, ei, rng
 
 
-def gcn_128x2(seed: int, device):
+def gcn_128x2(seed: int, device, n_conv: int = 2):
     """GCN-128x2 (in 84, conv 128/128, fc 128/64/1) with seeded numpy
-    weights, loaded through ``params_from_numpy``."""
+    weights, loaded through ``params_from_numpy``; ``n_conv=1`` gives
+    ``bench.py``'s explanation model (conv 128, fc 128/64/1)."""
     import numpy as np
     from bikg_graph_explainability_public_tpu_torch.models.adapter import Model
     from bikg_graph_explainability_public_tpu_torch.models.checkpoint import params_from_numpy
@@ -156,10 +168,10 @@ def gcn_128x2(seed: int, device):
         }
 
     tree = {
-        "conv": [dense(HIDDEN, N_FEATS), dense(HIDDEN, HIDDEN)],
+        "conv": [dense(HIDDEN, N_FEATS)] + [dense(HIDDEN, HIDDEN) for _ in range(n_conv - 1)],
         "fc": [dense(64, HIDDEN), dense(1, 64)],
     }
-    mdef = GCNNodeModel(N_FEATS, conv_channels=(HIDDEN, HIDDEN), fc_channels=(HIDDEN, 64))
+    mdef = GCNNodeModel(N_FEATS, conv_channels=(HIDDEN,) * n_conv, fc_channels=(HIDDEN, 64))
     return Model(mdef, params_from_numpy(tree), device=device), tree
 
 
@@ -934,10 +946,13 @@ def phase_explanations(dev, config, problem: str) -> None:
     for qi, q in enumerate(queries):
         t0 = time.perf_counter()
         ex = Explainer(feat, ei, model, config, names, problem=problem, device=dev)
-        ex = ex._explain(q, times=1)
+        ex, diag = ex._explain(q, times=1, return_diagnostics=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        msg = f"{path} 20k/160k GCN-128x2 query {q}: {len(ex.names)} elements, wall {wall:.3f} s"
+        phases = ", ".join(f"{k} {v:.4f} s" for k, v in diag["phase_seconds"].items())
+        msg = (f"{path} 20k/160k GCN-128x2 query {q}: {len(ex.names)} elements "
+               f"(subgraph {diag['subgraph_nodes']} nodes / {diag['subgraph_edges']} edges), "
+               f"wall {wall:.3f} s; diagnostics: {phases}, best epoch {diag['best_epoch'][0]}")
         if qi == 0:
             cpu_model, _ = gcn_128x2(seed=0, device="cpu")
             ex_cpu = Explainer(feat, ei, cpu_model, config, names, problem=problem, device="cpu")
@@ -948,25 +963,159 @@ def phase_explanations(dev, config, problem: str) -> None:
         log(msg + " ok")
 
 
-def profile_forwards(run, wall_s: float, label: str) -> None:
-    """Device time by operation over one more pass of ``run()``
-    (``torch.profiler``), and the device's busy share of the unprofiled
-    wall time ``wall_s`` of the same pass."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+#: bench.py's explanation workload (bench.py:439-483): the 20k / 160k graph
+#: (pad_mode "exact"), 16 queries, its CFG_FULL; community mode on seed 7
+#: with 32 communities
+EXPLAIN_Q, EXPLAIN_K = 16, 32
+CFG_FULL = {"seed": 1, "interpret_samples": 20, "epochs": 50, "lr": 0.01, "l1_lambda": 1e-4}
 
-    # how long the host takes to enqueue the pass, against its wall time
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    log(f"{label}: the host returns after {enqueue_s * 1e3:.1f} ms of a "
-        f"{(time.perf_counter() - t0) * 1e3:.1f} ms pass")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+
+def _hold_many(got, want, label) -> float:
+    """Every query's explanation from the card against the CPU's."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} explanations, the CPU gave {len(want)}")
+    return max(
+        _check_against_cpu(g, w, f"{label} query {i}") for i, (g, w) in enumerate(zip(got, want))
+    )
+
+
+def _identical(got, want, label) -> None:
+    """Two calls' explanations bit for bit (two hot calls run one plan)."""
+    import numpy as np
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        same = g.names == w.names and np.array_equal(g.mean, w.mean) and np.array_equal(g.std, w.std)
+        if g.pathway_scores is not None:
+            same = same and np.array_equal(g.pathway_scores, w.pathway_scores)
+        if not same:
+            raise AssertionError(f"{label} query {i}: two hot calls of one plan differ")
+
+
+def phase_explain_many(dev, config) -> None:
+    """The multi-query path ``explain/batch.py::_explain_many`` (the array
+    form of ``explain_many``; no pandas here): the 36-node fixture in
+    Shapley mode (queries 10, 3, 25, three repeats), community mode, one
+    edge and one graph problem, each held against the same call on the CPU;
+    then bench.py's workload in Shapley and community mode: one warm-up
+    call, the best of 5, explanations/s, the buckets, the phase split of
+    the first and of a later call (which must hit the launch-plan cache and
+    give the last timed call's arrays bit for bit), the device's busy share
+    in one traced call, peak memory, and every query of the first and of
+    the last timed call held against the same call on the CPU."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.explain import batch
+    from bikg_graph_explainability_public_tpu_torch.graph import from_arrays
+    from bikg_graph_explainability_public_tpu_torch.models.adapter import Model
+    from bikg_graph_explainability_public_tpu_torch.models.checkpoint import load_params
+    from bikg_graph_explainability_public_tpu_torch.models.gnn import GCNNodeModel
+    from bikg_graph_explainability_public_tpu_torch.utils.padding import round_up_pow2
+    from bikg_graph_explainability_public_tpu_torch.utils.profiling import PhaseTimer, device_trace
+
+    data = np.load(os.path.join(ROOT, "test_data", "toy_graph_36n.npz"))
+    feat, ei = data["feat"], data["edge_index"]
+    names = [str(x) for x in data["names"]]
+    edge_names = [str(i) for i in range(ei.shape[1])]
+    ckpt = os.path.join(ROOT, "test_data", "gcn_homo_36n_own.npz")
+    perm = np.random.default_rng(1).permutation(len(names))
+    pathways = [[str(int(v)) for v in c] for c in np.array_split(perm, 4)]
+    community = dict(pathways=pathways, pathway_names=[f"community_{i}" for i in range(4)])
+    runs = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = Model(GCNNodeModel(N_FEATS), load_params(ckpt), device=d)
+        g = from_arrays(feat, ei, device=d)
+        runs[where] = [
+            batch._explain_many(model, g, [10, 3, 25], config, names, times=3),
+            batch._explain_many(model, g, [10, 3, 25], config, names, **community),
+            batch._explain_many(model, g, [10, 3, 25], config, edge_names, problem="edge_prediction"),
+            batch._explain_many(model, g, [0], config, names, problem="graph_prediction"),
+        ]
+    labels = ("shapley times=3", "community", "edge_prediction", "graph_prediction")
+    for label, got, want in zip(labels, runs["card"], runs["cpu"]):
+        diff = _hold_many(got, want, f"explain_many 36n {label}")
+        log(f"explain_many 36n fixture {label}: {len(got)} queries, max |card - cpu| {diff:.3e} ok")
+
+    for mode, seed in (("shapley", 5), ("community", 7)):
+        feat, ei, rng = random_graph(NODE_N, NODE_E, seed=seed)
+        kw = {}
+        if mode == "community":
+            names = [str(i) for i in range(NODE_N)]
+            perm = rng.permutation(NODE_N)
+            kw = dict(
+                names=names,
+                pathways=[[names[j] for j in perm[i::EXPLAIN_K]] for i in range(EXPLAIN_K)],
+                pathway_names=[f"pw{i}" for i in range(EXPLAIN_K)],
+            )
+        queries = [int(q) for q in rng.integers(0, NODE_N, EXPLAIN_Q)]
+        model, _ = gcn_128x2(seed=0, device=dev, n_conv=1)
+        g = from_arrays(feat, ei, pad_mode="exact", device=dev)
+        label = f"explain_many {mode} 20k/160k GCN-128 Q={EXPLAIN_Q}"
+
+        def call(timer=None):
+            out = batch._explain_many(model, g, queries, CFG_FULL, timer=timer, **kw)
+            torch.cuda.synchronize()
+            return out
+
+        first_timer = PhaseTimer()
+        t0 = time.perf_counter()
+        first = call(first_timer)
+        first_wall = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            timed = call()
+            walls.append(time.perf_counter() - t0)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        best = min(walls)
+        hot_timer = PhaseTimer()
+        _identical(call(hot_timer), timed, label)
+        if "plan_build" in hot_timer.counts:
+            raise AssertionError(f"{label}: a later call missed the launch-plan cache")
+        buckets = Counter(
+            (round_up_pow2(s.graph.num_nodes), max(round_up_pow2(s.graph.num_edges), 8))
+            for s in (batch._subgraph_cached(g, q, 2) for q in queries)
+        )
+        log(f"{label}: {EXPLAIN_Q / best:.2f} explanations/s (best of 5: {best:.4f} s; "
+            f"all {', '.join(f'{w:.4f}' for w in walls)}); first call {first_wall:.3f} s; "
+            f"peak {peak_gb:.3f} GB")
+        log(f"{label}: buckets (n_pad, e_pad): queries "
+            + ", ".join(f"{k}: {v}" for k, v in sorted(buckets.items())))
+        for name, timer in (("first call", first_timer), ("later call (plan cache hit)", hot_timer)):
+            log(f"{label} phases, {name} (device synchronised at each phase's exit): "
+                + ", ".join(f"{k} {v:.4f} s x{timer.counts[k]}" for k, v in timer.totals.items()))
+        with device_trace(os.path.join(ROOT, "build", "traces")) as prof:
+            t0 = time.perf_counter()
+            call()
+            traced_wall = time.perf_counter() - t0
+        log(f"{label}: the traced call took {traced_wall * 1e3:.1f} ms; its device time "
+            f"against the best unprofiled call's wall:")
+        log_device_profile(prof, best, label)
+
+        cpu_model, _ = gcn_128x2(seed=0, device="cpu", n_conv=1)
+        cpu_g = from_arrays(feat, ei, pad_mode="exact", device="cpu")
+        t0 = time.perf_counter()
+        cpu = batch._explain_many(cpu_model, cpu_g, queries, CFG_FULL, **kw)
+        cpu_wall = time.perf_counter() - t0
+        diff = _hold_many(first, cpu, label + " first call")
+        diff_timed = _hold_many(timed, cpu, label + " last timed call")
+        log(f"{label}: every query of the first and of the last timed call held against the "
+            f"CPU's call ({cpu_wall:.2f} s on the host), max |card - cpu| {diff:.3e} and "
+            f"{diff_timed:.3e} ok")
+
+
+#: operations listed from a device profile
+PROFILE_TOP = 12
+
+
+def log_device_profile(prof, wall_s: float, label: str) -> None:
+    """Device time by operation from a finished ``torch.profiler`` run, and
+    the device's busy share of ``wall_s``, the unprofiled wall time of the
+    same work (or the traced pass's own wall time)."""
+    from torch.autograd import DeviceType
+
     # device-side events only: the host ops that launched them carry the
     # same time again
     rows = sorted(
@@ -983,7 +1132,7 @@ def profile_forwards(run, wall_s: float, label: str) -> None:
         return
     log(f"{label} profile: device busy {busy_ms:.1f} ms of {wall_s * 1e3:.1f} ms wall "
         f"(busy share {busy_ms / (wall_s * 1e3):.3f}); top operations by device time:")
-    for ms, count, name in rows[:12]:
+    for ms, count, name in rows[:PROFILE_TOP]:
         short = name if len(name) <= 100 else f"{name[:45]} ... {name[-50:]}"
         log(f"  {ms:10.3f} ms  {count:6d} calls  {short}")
     host = sorted(
@@ -997,6 +1146,27 @@ def profile_forwards(run, wall_s: float, label: str) -> None:
     log(f"{label} profile: top host operations by self CPU time:")
     for ms, count, name in host[:6]:
         log(f"  {ms:10.3f} ms  {count:6d} calls  {name[:100]}")
+
+
+def profile_forwards(run, wall_s: float, label: str) -> None:
+    """Device time by operation over one more pass of ``run()``
+    (``torch.profiler``), and the device's busy share of the unprofiled
+    wall time ``wall_s`` of the same pass."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    # how long the host takes to enqueue the pass, against its wall time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    log(f"{label}: the host returns after {enqueue_s * 1e3:.1f} ms of a "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms pass")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    log_device_profile(prof, wall_s, label)
 
 
 def expect_counts(counts: dict, expected: dict, label: str) -> None:
@@ -1948,6 +2118,9 @@ def main() -> int:
     reset_counts()
     phase_model_families(dev, config)
     expect_counts(read_counts(), {}, "model families (generic forward, segment operations)")
+    reset_counts()
+    phase_explain_many(dev, config)
+    expect_counts(read_counts(), {}, "explain_many (dense and coo formulations, plain torch)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     records = [rec_21, rec_op, rec_22, rec_23, rec_24, rec_tr] + ladder + [rec_29, rec_flag]
