@@ -10,8 +10,12 @@ folded into a counter-based key (:mod:`..utils.prng`), so runs reproduce and
 repeats differ, and the same seed gives the JAX package's masks and
 surrogate initialisation bit for bit.
 
-Ported: homogeneous graphs, ``node_prediction``, ``edge_prediction`` and
-``graph_prediction``.  Heterogeneous inputs are not ported.
+Ported: homogeneous and heterogeneous graphs (dicts of per-type features,
+edge indices, names and communities, homogenised by
+:func:`..graph.hetero_to_homo`), ``node_prediction``, ``edge_prediction``
+and ``graph_prediction``.  A heterogeneous graph's type ids are matched to
+the model's type and relation names (:func:`align_types`), where the JAX
+package takes them by position.
 """
 
 from __future__ import annotations
@@ -21,7 +25,16 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 
 from ..config import check_spmm_backend
-from ..graph import element_size, from_arrays
+from ..graph import (
+    Graph,
+    HeteroInfo,
+    element_size,
+    from_arrays,
+    graph_from_numpy,
+    hetero_names_to_homo,
+    hetero_to_homo,
+    host_view,
+)
 from ..models.adapter import Model
 from ..ops.khop import extract_khop_subgraph
 from ..utils.device import resolve_device
@@ -69,6 +82,40 @@ def config_val_dataframe(mean, std, names):
     return df.set_index("name").sort_values(by=["config_value_mean"], ascending=False)
 
 
+def align_types(graph: Graph, info: HeteroInfo, model_def) -> Graph:
+    """``graph`` with its node and edge type ids renumbered from
+    ``info``'s block order into ``model_def``'s ``node_type_names`` and
+    ``relations`` order, matched by name (blocks stay where they are;
+    padding keeps type 0).  Raises ``ValueError`` where the two name sets
+    differ.  A model that declares no type names takes the graph as it is.
+    """
+    names = getattr(model_def, "node_type_names", None)
+    rels = getattr(model_def, "relations", None)
+    if names is None or rels is None:
+        return graph
+    rels = [tuple(r) for r in rels]
+    if sorted(names) != sorted(info.node_type_names):
+        raise ValueError(
+            f"the graph's node types {info.node_type_names} are not the model's {names}"
+        )
+    if sorted(rels) != sorted(info.edge_type_names):
+        raise ValueError(
+            f"the graph's relations {info.edge_type_names} are not the model's {rels}"
+        )
+    node_perm = np.array([names.index(t) for t in info.node_type_names], np.int32)
+    edge_perm = np.array([rels.index(r) for r in info.edge_type_names], np.int32)
+    if (node_perm == np.arange(len(names))).all() and (edge_perm == np.arange(len(rels))).all():
+        return graph
+    hv = host_view(graph)
+    arrays = {k: getattr(hv, k) for k in ("x", "senders", "receivers", "node_mask", "edge_mask")}
+    n, e = graph.num_nodes, graph.num_edges
+    nt, et = hv.node_type.copy(), hv.edge_type.copy()
+    nt[:n], et[:e] = node_perm[nt[:n]], edge_perm[et[:e]]
+    return graph_from_numpy(
+        graph.device, **arrays, node_type=nt, edge_type=et, num_nodes=n, num_edges=e,
+    )
+
+
 class Explanation(NamedTuple):
     """One explanation as arrays.
 
@@ -88,14 +135,19 @@ class Explanation(NamedTuple):
 class Explainer:
     """Community-aware GNN explainer.
 
-    feat / edge_index : arrays ([N,F] / [2,E])
+    feat / edge_index : arrays ([N,F] / [2,E]) or, for a heterogeneous
+        graph, dicts of them keyed by node type / relation tuple
     model : a :class:`..models.adapter.Model`, the black box being explained
     params : hyperparameter dict (seed, interpret_samples, epochs, lr,
         l1_lambda, ... — reference ``config/configs.json``)
     names : list of element names: one per node, or one per edge for
-        ``edge_prediction``
-    pathways / pathway_names : community structure (None → Shapley mode)
+        ``edge_prediction``; a dict of such lists for a heterogeneous graph
+    pathways / pathway_names : community structure (None → Shapley mode),
+        lists or dicts keyed by type
     problem : "node_prediction" | "edge_prediction" | "graph_prediction"
+    element_type : the query's node type (str) or relation (tuple) in a
+        heterogeneous graph; names are then looked up in its block only
+    node_types / edge_types : type vectors of a homogeneous-array graph
     device : where the graph lives; ``None`` means the CUDA card.  It must
         be the model's device.
     """
@@ -111,8 +163,13 @@ class Explainer:
         pathway_names=None,
         problem: str = "node_prediction",
         device=None,
+        element_type=None,
+        node_types=None,
+        edge_types=None,
     ):
-        self.initial_assertions(model, params, names, pathways, pathway_names, problem)
+        self.initial_assertions(
+            feat, edge_index, model, params, names, pathways, pathway_names, element_type, problem
+        )
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, explainer on {self.device}")
@@ -124,14 +181,19 @@ class Explainer:
         self.pathways = pathways
         self.pathway_names = pathway_names
         self.problem = problem.lower().strip()
+        self.element_type = element_type
+        self.node_types = node_types
+        self.edge_types = edge_types
 
     @staticmethod
-    def initial_assertions(model, params, names, pathways, pathway_names, problem) -> None:
+    def initial_assertions(
+        feat, edge_index, model, params, names, pathways, pathway_names, element_type, problem
+    ) -> None:
         """Input validation (reference ``explainer.py:106-189``)."""
         if pathways is not None:
-            assert isinstance(pathways, list), "Pathways is not list"
+            assert isinstance(pathways, (list, dict)), "Pathways is not list or dict"
         if pathway_names is not None:
-            assert isinstance(pathway_names, list), "Pathway names is not list"
+            assert isinstance(pathway_names, (list, dict)), "Pathway names is not list or dict"
             assert len(pathway_names) == len(pathways), (
                 "Length of list with pathway names and list with pathway indexes "
                 "do not match"
@@ -144,8 +206,64 @@ class Explainer:
         assert problem.lower().strip() in canonical, (
             f"Unknown problem type {problem!r}; expected one of {canonical}"
         )
-        assert isinstance(names, list), "Element names is not list"
+        assert isinstance(names, (list, dict)), "Element names is not list or dict"
         assert isinstance(model, Model), "model must be a Model adapter"
+        if element_type is not None:
+            assert isinstance(
+                element_type, (str, tuple)
+            ), "Element type is not string (node) nor tuple (edge)"
+            if "node" in problem:
+                assert isinstance(feat, dict), "Feature given is not a dict of node types"
+                assert element_type in feat, (
+                    f"Node type '{element_type}' is not among input node types "
+                    "in heterogeneous graph"
+                )
+            elif "edge" in problem:
+                assert isinstance(edge_index, dict), (
+                    "Edge index given is not a dict of edge index types"
+                )
+                assert element_type in edge_index, (
+                    f"Edge type '{element_type}' is not among input edge types "
+                    "in heterogeneous graph"
+                )
+
+    def _query_index(self, element, names, info: Optional[HeteroInfo]) -> int:
+        """Index of the query element in the homogenised graph.  A
+        heterogeneous query with an ``element_type`` is looked up in that
+        type's block only (names may repeat across types) and offset by the
+        block's pointer (the reference's ``filter_hetero_names``,
+        ``explainer.py:228-286``)."""
+        if info is not None and isinstance(self.element_type, str) and "node" in self.problem:
+            t = info.node_type_names.index(self.element_type)
+            start, count = info.node_pointers[t], info.node_counts[t]
+            return start + extract_index(element, names[start : start + count])
+        if info is not None and isinstance(self.element_type, tuple) and "edge" in self.problem:
+            t = info.edge_type_names.index(self.element_type)
+            start, count = info.edge_pointers[t], info.edge_counts[t]
+            return start + extract_index(element, names[start : start + count])
+        return extract_index(element, names)
+
+    def _prepare_graph(self) -> Tuple[Graph, Optional[HeteroInfo], list]:
+        """The padded graph on the device (homogenised and its type ids
+        aligned to the model's where the inputs are dicts), its
+        :class:`..graph.HeteroInfo` (None for arrays) and the flat names.
+        Dict names are flattened in the graph's block order, matched by key
+        where their keys are the node types (or, for edge problems, the
+        relations)."""
+        if isinstance(self.feat, dict) and isinstance(self.edge_index, dict):
+            graph, info = hetero_to_homo(self.feat, self.edge_index, device=self.device)
+            graph = align_types(graph, info, self.model.model_def)
+            names = self.names
+            if isinstance(names, dict):
+                order = info.edge_type_names if "edge" in self.problem else info.node_type_names
+                if set(names) == set(order):
+                    names = {k: names[k] for k in order}
+            return graph, info, hetero_names_to_homo(names)[0]
+        graph = from_arrays(
+            self.feat, self.edge_index, node_type=self.node_types, edge_type=self.edge_types,
+            device=self.device,
+        )
+        return graph, None, self.names
 
     def _explain(self, element, times: int = 1, return_diagnostics: bool = False):
         """Explain one node, edge or graph prediction; the arrays behind
@@ -154,12 +272,22 @@ class Explainer:
         of :meth:`run`)."""
         if "spmm_backend" in self.params:
             check_spmm_backend(self.params["spmm_backend"])
-        graph = from_arrays(self.feat, self.edge_index, device=self.device)
+        graph, info, names = self._prepare_graph()
         pathways, pathway_names = self.pathways, self.pathway_names
+        if pathways is not None:
+            pointers = {}
+            if info is not None:
+                pointers = dict(
+                    node_pointers=dict(zip(info.node_type_names, info.node_pointers)),
+                    edge_pointers=dict(zip(info.edge_type_names, info.edge_pointers)),
+                )
+            pathways, pathway_names, _ = Pathways(pathways, pathway_names).hetero2homo(
+                self.problem, **pointers
+            )
 
         if "graph" not in self.problem:
-            n_hops = self.model.get_hops()
-            ind = extract_index(element, self.names)
+            n_hops = self.model.get_hops(info.num_relations if info is not None else 0)
+            ind = self._query_index(element, names, info)
             is_edge = "edge" in self.problem
             # edge queries seed the BFS at the query edge's receiver node,
             # whose prediction the masked forwards read
@@ -171,7 +299,7 @@ class Explainer:
             )
             sub_graph = sub.graph
             query = int(sub.query)
-            names_array = np.array(self.names, dtype=str)
+            names_array = np.array(names, dtype=str)
             if is_edge:
                 if len(names_array) < graph.num_edges:
                     raise AssertionError(
@@ -192,7 +320,7 @@ class Explainer:
         else:
             # graph problems explain the pooled prediction: no query element
             sub_graph = graph
-            sub_names = list(self.names)
+            sub_names = list(names)
             query = None
 
         sub_pathway_inds = None

@@ -8,7 +8,7 @@ the port runs where pandas is not installed.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -16,18 +16,59 @@ import numpy as np
 class Pathways:
     """Graph communities and their transformations.
 
-    ``communities`` is a list of lists of node names (str) or indices (int);
-    ``community_names`` defaults to indices.  The heterogeneous (dict) form
-    of the JAX package is not ported.
+    ``communities`` is a list of lists of node names (str) or indices
+    (int), or for a heterogeneous graph a dict of such lists keyed by node
+    type (edge type for edge problems), flattened by :meth:`hetero2homo`;
+    ``community_names`` defaults to indices for a list, and for a dict is a
+    dict of name lists with the same keys.  A dict of communities is
+    copied: shifting integer communities changes the copy, never the
+    caller's lists.
     """
 
     def __init__(self, communities, community_names=None):
         if isinstance(communities, dict):
-            raise NotImplementedError("heterogeneous communities are not ported yet")
+            communities = {k: [list(c) for c in v] for k, v in communities.items()}
         self.communities = communities
         self.community_names = community_names
-        if self.community_names is None:
+        if self.community_names is None and not isinstance(communities, dict):
             self.community_names = np.arange(len(communities)).tolist()
+
+    def shift_hetero_pathways(self, pointers: Mapping) -> None:
+        """Shift integer communities by the start pointer of their type's
+        block, looked up by type name (reference ``pathways.py:138``, which
+        pairs the dict's keys with the pointers by position)."""
+        for key, comms in self.communities.items():
+            self.communities[key] = [
+                (np.asarray(c) + pointers[key]).tolist() for c in comms
+            ]
+
+    def hetero2homo(
+        self,
+        problem: str,
+        node_pointers: Optional[Mapping] = None,
+        edge_pointers: Optional[Mapping] = None,
+    ) -> Tuple[list, list, Optional[np.ndarray]]:
+        """Flatten a dict of per-type community lists into one list, shifting
+        integer communities by the homogenisation pointers (``{type name:
+        pointer}``, node types for node and graph problems, relations for
+        edge problems), with each community's type position in the dict.
+        A list passes through with no types."""
+        if not isinstance(self.communities, dict):
+            return self.communities, self.community_names, None
+        if not isinstance(self.community_names, dict):
+            raise ValueError("dict communities need a dict of community names with the same keys")
+        first = next(iter(self.communities.values()))[0][0]
+        if isinstance(first, (int, float, np.integer, np.floating)):
+            if "node" in problem:
+                self.shift_hetero_pathways(node_pointers)
+            elif "edge" in problem:
+                self.shift_hetero_pathways(edge_pointers)
+        types, flat, names = [], [], []
+        for i, (key, comms) in enumerate(self.communities.items()):
+            types.append(np.full((len(comms),), i, np.int32))
+            flat.extend(comms)
+            names.extend(self.community_names[key])
+        return flat, names, np.concatenate(types)
 
     def comp_graph(self, names: Sequence) -> Tuple[list, list]:
         """Keep only the part of each community that intersects the

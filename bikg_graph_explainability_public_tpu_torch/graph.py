@@ -1,16 +1,21 @@
-"""Padded graph container (homogeneous half of the JAX package's ``graph.py``).
+"""Padded graph container (the JAX package's ``graph.py``).
 
 A graph holds device tensors padded to a capacity, plus boolean validity
 masks: removing an edge means weighting it 0, never rebuilding the edge
 list.  Host-side planning (k-hop extraction, query plans, neighbour tables)
 reads numpy copies of the same arrays through :func:`host_view`.
+
+A heterogeneous graph is a *typed homogeneous* graph: :func:`hetero_to_homo`
+concatenates the node types' feature blocks (one contiguous block per
+type) and the relations' edge lists, and records how in a
+:class:`HeteroInfo`; node and edge type ids are block positions.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -197,3 +202,150 @@ def element_size(graph: Graph, problem: str) -> int:
     if "edge" in problem:
         return graph.num_edges
     return graph.num_nodes
+
+
+@dataclass(frozen=True)
+class HeteroInfo:
+    """How a heterogeneous graph was homogenised: type names in block
+    order, the start pointer and size of each node type's block and of each
+    relation's edge block, and each type's feature padding (the reference's
+    ``preprocess_hetero_graph`` side outputs, ``data.py:39-93``)."""
+
+    node_type_names: List[str]
+    edge_type_names: List[Tuple[str, ...]]
+    node_pointers: List[int]
+    edge_pointers: List[int]
+    padded_dims: List[int]
+    node_counts: List[int]
+    edge_counts: List[int]
+
+    @property
+    def num_relations(self) -> int:
+        """Number of edge types."""
+        return len(self.edge_type_names)
+
+    @property
+    def num_node_types(self) -> int:
+        """Number of node types."""
+        return len(self.node_type_names)
+
+
+def pad_feature_blocks(
+    feat_blocks: Sequence[np.ndarray],
+) -> Tuple[List[np.ndarray], List[int], List[int]]:
+    """Zero-pad per-type feature matrices to a common width (reference
+    ``pad_feat_tensors``, ``data.py:825-878``): the padded blocks, how much
+    each was padded, and each block's start pointer in the concatenation."""
+    max_w = max(b.shape[1] for b in feat_blocks)
+    padded, padded_dims, pointers = [], [], []
+    ptr = 0
+    for b in feat_blocks:
+        diff = max_w - b.shape[1]
+        padded_dims.append(diff)
+        pointers.append(ptr)
+        ptr += b.shape[0]
+        padded.append(np.pad(b, ((0, 0), (0, diff))) if diff > 0 else b)
+    return padded, padded_dims, pointers
+
+
+def hetero_to_homo(
+    feat: Dict[str, Any],
+    edge_index: Dict[Tuple[str, ...], Any],
+    *,
+    node_budget: Optional[int] = None,
+    edge_budget: Optional[int] = None,
+    pad_mode: str = "multiple",
+    device=None,
+) -> Tuple[Graph, HeteroInfo]:
+    """Homogenise a heterogeneous graph into a typed :class:`Graph` on
+    ``device`` (``None`` means the CUDA card).
+
+    As the reference's ``hetero2homo`` (``data.py:95-147``): feature blocks
+    are concatenated in ``feat``'s order, zero-padded to a common width;
+    node type ``i`` is block ``i``; relation ``i`` is ``edge_index``'s
+    ``i``-th key, whose indices are shifted by the start pointers of its
+    source and target types' blocks.
+    """
+    node_type_names = list(feat.keys())
+    blocks = [_as_np(v).astype(np.float32) for v in feat.values()]
+    padded, padded_dims, node_pointers = pad_feature_blocks(blocks)
+    node_counts = [b.shape[0] for b in padded]
+    node_types = np.concatenate(
+        [np.full((c,), i, np.int32) for i, c in enumerate(node_counts)]
+    )
+    edge_blocks, edge_types, edge_pointers, edge_counts = [], [], [], []
+    ptr = 0
+    for i, (rel, ei) in enumerate(edge_index.items()):
+        ei = _as_np(ei).astype(np.int64)
+        shift = [
+            [node_pointers[node_type_names.index(rel[0])]],
+            [node_pointers[node_type_names.index(rel[-1])]],
+        ]
+        edge_blocks.append(ei + np.array(shift, np.int64))
+        edge_types.append(np.full((ei.shape[1],), i, np.int32))
+        edge_pointers.append(ptr)
+        edge_counts.append(ei.shape[1])
+        ptr += ei.shape[1]
+    homo_ei = np.hstack(edge_blocks) if edge_blocks else np.zeros((2, 0), np.int64)
+    homo_et = np.concatenate(edge_types) if edge_types else np.zeros((0,), np.int32)
+    g = from_arrays(
+        np.vstack(padded), homo_ei, node_type=node_types, edge_type=homo_et,
+        node_budget=node_budget, edge_budget=edge_budget, pad_mode=pad_mode,
+        device=device,
+    )
+    info = HeteroInfo(
+        node_type_names=node_type_names,
+        edge_type_names=[tuple(t) for t in edge_index.keys()],
+        node_pointers=node_pointers,
+        edge_pointers=edge_pointers,
+        padded_dims=padded_dims,
+        node_counts=node_counts,
+        edge_counts=edge_counts,
+    )
+    return g, info
+
+
+def homo_to_hetero_edge_indices(
+    senders, receivers, edge_type, info: HeteroInfo, num_edges: Optional[int] = None
+) -> Dict[Tuple[str, ...], np.ndarray]:
+    """Per-relation local ``[2, E_r]`` edge indices from the homogenised
+    arrays (the edge half of the reference's ``homo2hetero``,
+    ``data.py:149-232``)."""
+    snd, rcv, et = _as_np(senders), _as_np(receivers), _as_np(edge_type)
+    if num_edges is not None:
+        snd, rcv, et = snd[:num_edges], rcv[:num_edges], et[:num_edges]
+    names = info.node_type_names
+    out: Dict[Tuple[str, ...], np.ndarray] = {}
+    for ri, rel in enumerate(info.edge_type_names):
+        sel = et == ri
+        s_off = info.node_pointers[names.index(rel[0])]
+        d_off = info.node_pointers[names.index(rel[-1])]
+        out[tuple(rel)] = np.stack([snd[sel] - s_off, rcv[sel] - d_off])
+    return out
+
+
+def homo_to_hetero_features(x, node_type, info: HeteroInfo) -> Dict[str, np.ndarray]:
+    """Split a homogenised feature matrix back into per-type blocks, without
+    their zero padding (reference ``homo2hetero``)."""
+    x, node_type = _as_np(x), _as_np(node_type)
+    out: Dict[str, np.ndarray] = {}
+    for i, name in enumerate(info.node_type_names):
+        block = x[node_type == i]
+        if info.padded_dims[i] > 0:
+            block = block[:, : -info.padded_dims[i]]
+        out[name] = block
+    return out
+
+
+def hetero_names_to_homo(names) -> Tuple[List[str], Optional[np.ndarray]]:
+    """Flatten a dict of per-type name lists into one list plus a type
+    vector (reference ``hetero2homo_names``, ``data.py:234-279``); a list
+    passes through with no types."""
+    if not isinstance(names, dict):
+        return names, None
+    homo: List[str] = []
+    types: List[np.ndarray] = []
+    for i, lst in enumerate(names.values()):
+        homo.extend(lst)
+        types.append(np.full((len(lst),), i, np.int32))
+    return homo, (np.concatenate(types) if types else np.zeros((0,), np.int32))

@@ -15,7 +15,7 @@ from torch import nn
 
 from ..graph import Graph
 from ..utils.device import resolve_device
-from .gnn import GCNNodeModel
+from .gnn import GCNNodeModel, HeteroGNN
 
 
 class Model:
@@ -30,6 +30,10 @@ class Model:
     where they expose ``backbone`` / ``head``
     (:class:`.gnn.ConvStackNodeModel`: the GAT, GATv2, SAGE, GraphConv and
     GIN stacks, which have no fast engine in the JAX package either).
+    A :class:`.gnn.HeteroGNN` of GCNConvs runs on
+    :class:`.fast_hetero.FastBatchedHeteroGCN` when ``fast``; what that
+    engine declines (it returns None), and any other typed model, runs the
+    generic forward with the graph's type vectors.
     """
 
     def __init__(
@@ -50,10 +54,19 @@ class Model:
         """Receptive-field depth, as the model declares it."""
         return self.model_def.num_hops
 
+    @property
+    def _typed(self) -> bool:
+        """Whether the model's forward also takes ``(node_type,
+        edge_type)``: :class:`.gnn.HeteroGNN`, or a model declaring ``typed
+        = True``."""
+        return isinstance(self.model_def, HeteroGNN) or getattr(self.model_def, "typed", False)
+
     def forward_fn(self, graph: Graph) -> Callable[[torch.Tensor], torch.Tensor]:
         """``edge_weight -> per-node output`` with the graph captured."""
+        types = (graph.node_type, graph.edge_type) if self._typed else ()
+
         def fwd(ew):
-            return self.model_def(graph.x, graph.senders, graph.receivers, ew)
+            return self.model_def(graph.x, graph.senders, graph.receivers, ew, *types)
         return fwd
 
     @torch.no_grad()
@@ -88,14 +101,25 @@ class Model:
             return self._fast_engine(graph).query_outputs(
                 masks, query, problem, chunk_size, auto_chunk=auto_chunk
             )
+        if self.fast and isinstance(self.model_def, HeteroGNN):
+            engine = self._fast_hetero_engine(graph)
+            if engine is not None:
+                # the engine declines what it cannot serve: unrestricted
+                # edge problems up to its DENSE_CAP, or beyond its budget
+                out = engine.query_outputs(masks, query, problem, chunk_size)
+                if out is not None:
+                    return out
         base = graph.edge_mask.to(graph.x.dtype)
         snd, rcv = graph.senders, graph.receivers
         is_edge = "edge" in problem
         is_graph = "graph" in problem
         nvalid = graph.node_mask.to(graph.x.dtype)
-        # models exposing backbone/head run the head on the query row only
+        fwd = self.forward_fn(graph)
+        # homogeneous models exposing backbone/head run the head on the
+        # query row only
         split_head = (
             not is_graph
+            and not self._typed
             and hasattr(self.model_def, "backbone")
             and hasattr(self.model_def, "head")
         )
@@ -106,7 +130,7 @@ class Model:
             if split_head:
                 h = self.model_def.backbone(graph.x, snd, rcv, ew)
                 return self.model_def.head(h[:, query, :])[:, 0]
-            out = self.model_def(graph.x, snd, rcv, ew)  # [B, N, out]
+            out = fwd(ew)  # [B, N, out]
             if is_graph:  # global mean pool over valid nodes
                 return (out[..., 0] * nvalid).sum(-1) / torch.clamp(nvalid.sum(), min=1.0)
             return out[:, query, 0]
@@ -119,5 +143,20 @@ class Model:
         if self._fast_cache[0] is graph:
             return self._fast_cache[1]
         engine = FastBatchedGCN(self.model_def, graph, device=self.device)
+        self._fast_cache = (graph, engine)
+        return engine
+
+    def _fast_hetero_engine(self, graph: Graph):
+        """The hetero engine for ``graph`` (cached), or None where the
+        model's convs are not all GCNConvs (the JAX package's hetero GAT
+        engine is not ported: such models run the generic forward)."""
+        from .fast_hetero import FastBatchedHeteroGCN
+
+        if self._fast_cache[0] is graph:
+            return self._fast_cache[1]
+        try:
+            engine = FastBatchedHeteroGCN(self.model_def, graph, device=self.device)
+        except TypeError:
+            engine = None
         self._fast_cache = (graph, engine)
         return engine

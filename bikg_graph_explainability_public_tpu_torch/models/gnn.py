@@ -4,15 +4,17 @@
 ``(x, senders, receivers, edge_weight)`` forward); :class:`GCNNodeModel` is
 the GCN stack of the reference homo test model ``GCN_homo``
 (``tests/test_utils.py:10-83``), which the fused engine serves; the
-factories build the GAT, GATv2, SAGE, GraphConv and GIN stacks.  Parameter
-names are those of the JAX package's parameter trees (``conv.0.weight``,
-``conv.0.lin_src.weight``, ``fc.0.bias``, ...), so a JAX tree loads with
+factories build the GAT, GATv2, SAGE, GraphConv and GIN stacks.
+:class:`HeteroGNN` is the per-relation stack of PyG's ``HeteroConv`` over a
+typed homogeneous graph.  Parameter names are those of the JAX package's
+parameter trees (``conv.0.weight``, ``conv.0.lin_src.weight``,
+``conv.0.a__r1__b.weight``, ``fc.0.bias``, ...), so a JAX tree loads with
 :func:`.checkpoint.params_from_numpy`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -196,3 +198,111 @@ def gin_node_model(
         lambda prev, c: (GINConv(prev, c, mlp_channels=(mlp_hidden,), generator=generator), c),
         fc_channels, out_features, generator,
     )
+
+
+Relation = Tuple[str, str, str]
+
+
+class HeteroGNN(nn.Module):
+    """Per-relation convs over a typed homogeneous graph, summed per node
+    (PyG ``HeteroConv`` with ``aggr='sum'``), then the FC head.
+
+    ``conv_layers``: one dict ``{(src_type, rel, dst_type): conv}`` a layer;
+    relation ``ri`` of a layer is its dict's ``ri``-th key, and edges of
+    type ``ri`` feed it.  Node type ``i`` is ``node_type_names[i]``: a
+    relation's conv puts its self-loops and bias only on its destination
+    type's nodes (``dst_scope``).  The modules live in ``conv``, an
+    ``nn.ModuleList`` of ``nn.ModuleDict``s keyed ``"src__rel__dst"``, so
+    the JAX tree ``{"conv": [{"a__r1__b": {...}}], "fc": [...]}`` loads as
+    it is.  ``head_node_type`` is kept for the reference's signature; the
+    head runs on whatever rows it is given.
+    """
+
+    def __init__(
+        self,
+        node_type_names: Sequence[str],
+        conv_layers: Sequence[Dict[Relation, nn.Module]],
+        fc_channels: Sequence[int] = (16, 16, 32),
+        out_features: int = 1,
+        head_node_type: int = 0,
+        final_activation: Callable = sigmoid,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.node_type_names = list(node_type_names)
+        self.layer_relations: List[List[Relation]] = [
+            [tuple(r) for r in layer] for layer in conv_layers
+        ]
+        self.conv = nn.ModuleList(
+            nn.ModuleDict({"__".join(r): c for r, c in layer.items()}) for layer in conv_layers
+        )
+        self.fc_channels = tuple(fc_channels)
+        self.out_features = out_features
+        self.head_node_type = head_node_type
+        self.final_activation = final_activation
+        fdims = self.fc_channels + (out_features,)
+        self.fc = nn.ModuleList(
+            Linear(a, b, generator=generator) for a, b in zip(fdims[:-1], fdims[1:])
+        )
+
+    @property
+    def conv_layers(self) -> List[Dict[Relation, nn.Module]]:
+        """Each layer's ``{relation: conv}``, in relation order."""
+        return [
+            {r: layer["__".join(r)] for r in rels}
+            for rels, layer in zip(self.layer_relations, self.conv)
+        ]
+
+    @property
+    def num_hops(self) -> int:
+        """Receptive-field depth = number of conv layers."""
+        return len(self.conv)
+
+    @property
+    def relations(self) -> List[Relation]:
+        """Relation keys in layer order."""
+        return list(self.layer_relations[0])
+
+    def backbone(self, x, senders, receivers, edge_weight, node_type, edge_type) -> torch.Tensor:
+        """The per-relation convs, summed per node, each layer followed by
+        a ReLU.  ``edge_weight`` may carry leading batch axes."""
+        scopes = {name: node_type == i for i, name in enumerate(self.node_type_names)}
+        for layer in self.conv_layers:
+            out = None
+            for ri, (rel, conv) in enumerate(layer.items()):
+                rel_w = edge_weight * (edge_type == ri).to(edge_weight.dtype)
+                contrib = conv(x, senders, receivers, rel_w, dst_scope=scopes[rel[-1]])
+                out = contrib if out is None else out + contrib
+            x = relu(out)
+        return x
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """FC head + final activation on [..., C] representations."""
+        n = len(self.fc)
+        for i, fc in enumerate(self.fc):
+            x = fc(x)
+            x = self.final_activation(x) if i == n - 1 else relu(x)
+        return x
+
+    def forward(self, x, senders, receivers, edge_weight, node_type, edge_type) -> torch.Tensor:
+        """Full per-node output on the homogenised graph."""
+        return self.head(self.backbone(x, senders, receivers, edge_weight, node_type, edge_type))
+
+
+def hetero_gcn_for_relations(
+    node_type_names: Sequence[str],
+    relations: Sequence[Relation],
+    in_features: int,
+    conv_channels: Sequence[int] = (16,),
+    fc_channels: Sequence[int] = (16, 16, 32),
+    out_features: int = 1,
+    generator: Optional[torch.Generator] = None,
+) -> HeteroGNN:
+    """A :class:`HeteroGNN` of per-relation GCNConvs: the architecture of
+    the reference's trained hetero checkpoint (``conv.{2i}.convs.<rel>.
+    lin.weight``), which :class:`.fast_hetero.FastBatchedHeteroGCN` serves."""
+    layers, prev = [], in_features
+    for c in conv_channels:
+        layers.append({tuple(r): GCNConv(prev, c, generator=generator) for r in relations})
+        prev = c
+    return HeteroGNN(node_type_names, layers, fc_channels, out_features, generator=generator)

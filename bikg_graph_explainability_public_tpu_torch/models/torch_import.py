@@ -10,9 +10,10 @@ homogeneous GAT's one shared ``lin_src`` fills both ``lin_src`` and
 ``lin_dst``, and GIN's ``nn.{2j}`` becomes ``nn.{j}``.  The result loads
 with ``load_state_dict`` (or :class:`.adapter.Model`'s ``params``).
 
-Homogeneous stacks only: the hetero (``.convs.<relation>.``) and RGCN
-(``weight`` + ``root``) layouts belong to the hetero slice of the port and
-raise ``NotImplementedError``.
+Hetero stacks of PyG ``HeteroConv`` (``conv.{2i}.convs.<src__rel__dst>.``)
+map to :class:`.gnn.HeteroGNN`'s ``conv.{i}.<src__rel__dst>.``; only
+per-relation GCNConvs are ported.  Hetero SAGE and GAT relations and the
+RGCN layout (``weight`` + ``root``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -169,6 +170,51 @@ def gin_node_model_params(sd: Mapping) -> StateDict:
     return _stack_params(sd, "gin", _fc(sd, _indices(sd, "fc.")))
 
 
+def hetero_relations_from_state_dict(sd: Mapping) -> List[Tuple[str, ...]]:
+    """The relation tuples named by a hetero checkpoint's keys
+    (``conv.0.convs.<src__rel__dst>.``, PyG ``HeteroConv``'s module-dict
+    convention), sorted by their joined names."""
+    prefix = "conv.0.convs."
+    rels = sorted({k[len(prefix):].split(".")[0] for k in sd if k.startswith(prefix)})
+    return [tuple(r.split("__")) for r in rels]
+
+
+def _hetero_layers(sd: Mapping) -> List[Tuple[str, List[str]]]:
+    """(key prefix, relation keys ``src__rel__dst`` sorted) of each hetero
+    layer ``conv.{i}.convs.``, in index order."""
+    layers = []
+    for ci in _indices(sd, "conv."):
+        prefix = f"conv.{ci}.convs."
+        rels = sorted({k[len(prefix):].split(".")[0] for k in sd if k.startswith(prefix)})
+        if not rels:
+            raise ValueError(f"hetero layer conv.{ci} has no relations")
+        families = {_layer_family(sd, f"{prefix}{r}.") for r in rels}
+        if families != {"gcn"}:
+            raise NotImplementedError(
+                f"hetero layer conv.{ci} has {sorted(families)} relations: only per-relation "
+                "GCNConvs are ported; hetero SAGE and GAT come with FastBatchedHeteroGAT "
+                "(the next slice)"
+            )
+        layers.append((prefix, rels))
+    return layers
+
+
+def hetero_gcn_params(sd: Mapping) -> StateDict:
+    """A HeteroConv-of-GCNConv state dict (``conv.{2i}.convs.<src__rel__dst>.
+    lin.weight`` / ``.bias``, ``fc.{2j}.*``) as :class:`.gnn.HeteroGNN`'s
+    (``conv.{i}.<src__rel__dst>.weight``)."""
+    out: StateDict = {}
+    for i, (prefix, rels) in enumerate(_hetero_layers(sd)):
+        for rel in rels:
+            for k, v in _layer_params(sd, f"{prefix}{rel}.", "gcn").items():
+                out[f"conv.{i}.{rel}.{k}"] = v
+    fc = _fc(sd, _indices(sd, "fc."))
+    if not out or not fc:
+        raise ValueError("state dict does not look like a HeteroConv GCN stack")
+    out.update(fc)
+    return out
+
+
 def gat_config_from_state_dict(sd: Mapping) -> List[dict]:
     """Per-layer ``{"heads", "channels", "concat"}`` of a GAT/GATv2 stack:
     heads and channels from ``att_src`` / ``att`` [1, H, C], concat from
@@ -246,11 +292,16 @@ def import_any(sd: Mapping) -> Tuple[nn.Module, StateDict]:
     ``lin_src`` / ``att_src``, ``lin_l`` + ``att``, ``lin_l`` + ``lin_r``,
     ``lin_rel``, ``nn.{j}``).  GCN-only stacks build
     :class:`.gnn.GCNNodeModel` (the fused engine's model); mixed stacks
-    build :class:`.gnn.ConvStackNodeModel`.  Unknown layouts raise
-    ``ValueError``; the hetero and RGCN layouts raise
-    ``NotImplementedError`` (the port's hetero slice, slice 6).
+    build :class:`.gnn.ConvStackNodeModel`; ``.convs.<src__rel__dst>.``
+    keys of GCNConvs build :class:`.gnn.HeteroGNN`, whose node types are
+    the relations' type names sorted and whose relations are each layer's
+    keys sorted (as the JAX package builds them; the port's
+    :class:`..explain.explainer.Explainer` matches a graph's types to them
+    by name).  Unknown layouts raise ``ValueError``; hetero SAGE or GAT
+    relations and the RGCN layout raise ``NotImplementedError``.
     """
-    from .gnn import ConvStackNodeModel, GCNNodeModel
+    from .gnn import ConvStackNodeModel, GCNNodeModel, HeteroGNN
+    from .layers import GCNConv
 
     fc = _fc(sd, _indices(sd, "fc."))
     if not fc:
@@ -264,9 +315,22 @@ def import_any(sd: Mapping) -> Tuple[nn.Module, StateDict]:
     if not conv_idx:
         raise ValueError("state dict has no conv.{i}.* parameters")
     if any(k.startswith(f"conv.{conv_idx[0]}.convs.") for k in sd):
-        raise NotImplementedError(
-            "hetero (HeteroConv .convs.<relation>.) checkpoints are not ported yet (slice 6)"
-        )
+        relations = hetero_relations_from_state_dict(sd)
+        ntypes = sorted({r[0] for r in relations} | {r[-1] for r in relations})
+        params = hetero_gcn_params(sd)
+        layers, prev = [], None
+        for i, (_prefix, rels) in enumerate(_hetero_layers(sd)):
+            layer = {}
+            for rel in rels:
+                w = params[f"conv.{i}.{rel}.weight"]
+                layer[tuple(rel.split("__"))] = GCNConv(
+                    int(w.shape[1]) if prev is None else prev, int(w.shape[0]),
+                    bias=f"conv.{i}.{rel}.bias" in params,
+                )
+                width = int(w.shape[0])
+            layers.append(layer)
+            prev = width
+        return HeteroGNN(ntypes, layers, fc_channels, out_features), params
     families = [_layer_family(sd, f"conv.{ci}.") for ci in conv_idx]
     if "rgcn" in families:
         raise NotImplementedError("RGCN checkpoints are not ported yet (slice 6)")

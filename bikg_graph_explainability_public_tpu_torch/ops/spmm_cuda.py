@@ -341,20 +341,23 @@ class BandPlan(NamedTuple):
 
 def band_plan(
     n: int, w: int, itemsize: int, vec: int, sms: int, band: Optional[int] = None,
-    passes: int = BAND_PASSES, max_rows: int = BAND_MAX_ROWS,
+    passes: int = BAND_PASSES, max_rows: int = BAND_MAX_ROWS, n_src: Optional[int] = None,
 ) -> BandPlan:
-    """The band walk for ``[n, w]`` features of ``itemsize`` bytes read
-    ``vec`` elements a lane, on a card of ``sms`` SMs.  The band is
-    :data:`BAND_BYTES` of each row, halved while ``n * band * itemsize``
-    exceeds :data:`L2_BAND_BUDGET` (not below one 128-byte line), and no
-    wider than ``w`` or 32 lanes of a warp; ``band`` overrides that choice.
+    """The band walk for an ``[n, w]`` output over ``n_src`` rows of
+    features (default ``n``) of ``itemsize`` bytes read ``vec`` elements a
+    lane, on a card of ``sms`` SMs.  The band is :data:`BAND_BYTES` of each
+    row, halved while the resident band of the source rows, ``n_src * band
+    * itemsize``, exceeds :data:`L2_BAND_BUDGET` (not below one 128-byte
+    line), and no wider than ``w`` or 32 lanes of a warp; ``band``
+    overrides that choice.
     A work item is ``passes`` passes of a warp over its rows, at most
     ``max_rows`` (:data:`BAND_MAX_ROWS`; kernel 2.9 keeps half the warp's
     degree slots for its counts).  A band is a multiple of ``vec``, so every band
     starts 16-byte aligned where ``vec > 1``."""
     if band is None:
+        resident = n if n_src is None else n_src
         band = BAND_BYTES // itemsize
-        while band * itemsize > _LINE_BYTES and n * band * itemsize > L2_BAND_BUDGET:
+        while band * itemsize > _LINE_BYTES and resident * band * itemsize > L2_BAND_BUDGET:
             band //= 2
         band = min(band, 32 * vec)
     band = min(band, max(w, vec))
@@ -394,11 +397,14 @@ def uses_band_walk(w_slot: torch.Tensor, b: int) -> bool:
 
 
 def _plan(feats: torch.Tensor, out: torch.Tensor, b: int, band, passes, max_rows=BAND_MAX_ROWS):
-    """(vec, plan) of a band-walk launch that writes ``out``."""
+    """(vec, plan) of a band-walk launch that reads ``feats`` and writes
+    ``out`` (a type-scoped table has more or fewer source rows than output
+    rows)."""
     n, w = out.shape
     vec = _vec(feats, out, w // b)
     sms = _sm_count(feats.device.index)
-    return vec, band_plan(n, w, feats.element_size(), vec, sms, band, passes, max_rows)
+    return vec, band_plan(n, w, feats.element_size(), vec, sms, band, passes, max_rows,
+                          n_src=feats.shape[0])
 
 
 def _static_args(kernel: Kernel, table, feats, out, b, operand, vec, plan, counter,

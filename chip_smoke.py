@@ -73,7 +73,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    edge queries, GATv2, SAGE, GraphConv and GIN one node query each, all
    through the generic batched forward (no hand kernel), checked against
    the CPU;
-10. the multi-query path (``explain/batch.py::_explain_many``, the arrays
+10. the hetero node and edge paths: ``Explainer``'s arrays on dict inputs
+   with a ``HeteroGNN`` of GCNConvs (conv (128,), fc (128, 64), seeded
+   weights) on bench.py's hetero explanation graph (2 x 4000 nodes, 3 x
+   24,000 edges): 4 node queries of type a and 4 edge queries of relation
+   (a, r1, b), in Shapley mode and in community mode (32 communities a
+   type or relation), then the repo's hetero toy example (9 nodes) in both
+   modes, every run held against the same run on the CPU
+   (receptive-field plans: no kernel launches);
+11. the hetero ELL tier (``FastBatchedHeteroGCN``) on bench.py's
+   full-graph hetero workload (2 x 50,000 nodes, 3 x 333,333 edges, conv
+   (128, 128)): ``graph_prediction`` through ``Explainer`` (1000 masks in
+   chunks of 48), counting kernel 2.3's launches (one a relation and chunk
+   in layer 2), with its set-up / forwards / rest split and a profile;
+   the unrestricted edge forward (1000 edge masks, query row 17), counting
+   kernel 2.4's; one chunk of each held against the plain route; then both
+   kernels on each relation's type-scoped table (50,000 output rows over
+   100,000 or 50,000 source rows, B = 48), held against their plain
+   versions and timed beside them, their bounds and, for 2.3,
+   ``torch.sparse.mm``, and in three edge cases (K = 12 and 20, rows of
+   degree 0, more or fewer source rows than output rows);
+12. the multi-query path (``explain/batch.py::_explain_many``, the arrays
    behind ``explain_many``; no hand kernel): the 36-node fixture in
    Shapley mode, community mode, an edge and a graph problem, each held
    against the CPU; then bench.py's workload (20k / 160k, GCN-128, 16
@@ -312,9 +332,10 @@ def _table(n, e, k, seed, device, *, dead_rows=0, dead_srcs=0):
     )
 
 
-def check_kernel_case(table, b, f, dtype, scale, seed, label):
-    """Kernel 2.3 against plain on one input; returns (max_abs_err, feats,
-    ps, the band walk's plan, the rows of degree above its slot tile)."""
+def check_kernel_case(table, b, f, dtype, scale, seed, label, n_src=None):
+    """Kernel 2.3 against plain on one input, with ``n_src`` source rows
+    (default: the table's rows); returns (max_abs_err, feats, ps, the band
+    walk's plan, the rows of degree above its slot tile)."""
     import torch
     from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
     from bikg_graph_explainability_public_tpu_torch.ops.spmm_cuda import (
@@ -323,9 +344,10 @@ def check_kernel_case(table, b, f, dtype, scale, seed, label):
 
     dev = table.nbr.device
     n = table.nbr.shape[0]
+    n_src = n if n_src is None else n_src
     gen = torch.Generator(device=dev).manual_seed(seed)
-    feats = torch.randn((n, b * f), generator=gen, device=dev).to(dtype)
-    used = torch.zeros(n, dtype=torch.bool, device=dev)
+    feats = torch.randn((n_src, b * f), generator=gen, device=dev).to(dtype)
+    used = torch.zeros(n_src, dtype=torch.bool, device=dev)
     used[table.nbr[table.valid > 0]] = True
     feats[~used] = float("nan")  # rows no valid slot names
     ps = torch.randn((n, b), generator=gen, device=dev) if scale else None
@@ -337,7 +359,7 @@ def check_kernel_case(table, b, f, dtype, scale, seed, label):
     _, plan = sc._plan(feats, got, b, None, sc.BAND_PASSES)
     above = int((table.deg > plan.tile).sum())
     log(
-        f"kernel case {label}: N={n} K={table.k} b={b} F={f} {str(dtype)[6:]} "
+        f"kernel case {label}: N={n} N_src={n_src} K={table.k} b={b} F={f} {str(dtype)[6:]} "
         f"post_scale={scale} deg0_rows={int((table.deg == 0).sum())} "
         f"nan_rows={int((~used).sum())} band={plan.band} tile={plan.tile} "
         f"rows_above_tile={above} max_abs_err={err:.3e} ok"
@@ -469,21 +491,23 @@ def phase_kernel(dev):
     }, graph, table
 
 
-def weighted_inputs(table, b, f, dtype, seed):
-    """Kernel 2.4's inputs: features with NaN in the source rows that no
-    valid slot names and in one named row ``r0``; sample-major weights
-    ``w_bnk [B, N, K]``, a third of them exactly 0 (the masked edges) and
-    every slot that names ``r0`` weighing 0, so that 2.4's multiply keeps
-    0 * NaN on the rows that name it.  Returns (feats, w_bnk, the rows that
-    name r0, the NaN rows that no valid slot names)."""
+def weighted_inputs(table, b, f, dtype, seed, n_src=None):
+    """Kernel 2.4's inputs: features over ``n_src`` source rows (default:
+    the table's rows) with NaN in the rows that no valid slot names and in
+    one named row ``r0``; sample-major weights ``w_bnk [B, N, K]``, a third
+    of them exactly 0 (the masked edges) and every slot that names ``r0``
+    weighing 0, so that 2.4's multiply keeps 0 * NaN on the rows that name
+    it.  Returns (feats, w_bnk, the rows that name r0, the NaN rows that no
+    valid slot names)."""
     import torch
 
     dev = table.nbr.device
     n, k = table.nbr.shape
+    n_src = n if n_src is None else n_src
     valid = table.valid > 0
     gen = torch.Generator(device=dev).manual_seed(seed)
-    feats = torch.randn((n, b * f), generator=gen, device=dev).to(dtype)
-    used = torch.zeros(n, dtype=torch.bool, device=dev)
+    feats = torch.randn((n_src, b * f), generator=gen, device=dev).to(dtype)
+    used = torch.zeros(n_src, dtype=torch.bool, device=dev)
     used[table.nbr[valid]] = True
     feats[~used] = float("nan")
     r0 = int(table.nbr[valid][0])
@@ -521,16 +545,17 @@ def hold_exact(table, got, want, named_r0, label) -> None:
         )
 
 
-def check_weighted_case(table, b, f, dtype, seed, label):
-    """Kernel 2.4 against its plain version on one input, through both
-    entries: the sample-major weights as they are (``w_sample``) and their
-    slot-major copy (``w_slot``, transposed on the card first), bit for bit.
-    Returns (feats, w_bnk)."""
+def check_weighted_case(table, b, f, dtype, seed, label, n_src=None):
+    """Kernel 2.4 against its plain version on one input (``n_src`` source
+    rows, default the table's), through both entries: the sample-major
+    weights as they are (``w_sample``) and their slot-major copy
+    (``w_slot``, transposed on the card first), bit for bit.  Returns
+    (feats, w_bnk)."""
     import torch
     from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
 
     n, k = table.nbr.shape
-    feats, w_bnk, named_r0, nan_rows = weighted_inputs(table, b, f, dtype, seed)
+    feats, w_bnk, named_r0, nan_rows = weighted_inputs(table, b, f, dtype, seed, n_src)
     w_slot = w_bnk.permute(1, 2, 0).contiguous()
     want = sc.batched_gather_sum_plain(table, feats, b, w_slot)
     got = sc.batched_gather_sum(table, None, feats, b, w_sample=w_bnk)
@@ -543,8 +568,8 @@ def check_weighted_case(table, b, f, dtype, seed, label):
     w = b * f
     spans = sum(c // f != (min(c + plan.band, w) - 1) // f for c in range(0, w, plan.band))
     log(
-        f"kernel case {label}: N={n} K={k} b={b} F={f} W={w} {str(dtype)[6:]} "
-        f"deg0_rows={int((table.deg == 0).sum())} nan_rows={nan_rows} "
+        f"kernel case {label}: N={n} N_src={feats.shape[0]} K={k} b={b} F={f} W={w} "
+        f"{str(dtype)[6:]} deg0_rows={int((table.deg == 0).sum())} nan_rows={nan_rows} "
         f"rows_keeping_0*nan={int(named_r0.sum())} "
         f"zero_weights={int(((w_bnk == 0) & (table.valid > 0)).sum())} band={plan.band} "
         f"bands_spanning_samples={spans} of {-(-w // plan.band)}; both entries bit for bit ok"
@@ -2076,6 +2101,328 @@ def phase_model_families(dev, config) -> None:
                         f"{problem.split('_')[0]} path 20k/160k {name} query {int(q)}")
 
 
+#: bench.py's hetero graphs (bench.py:486-580): node types a and b with
+#: N(0,1) features of width 32, three relations of uniform random edges;
+#: (nodes per type, edges per relation, seed) of the explanation workload
+#: and of the full-graph forwards
+HETERO_F = 32
+HETERO_RELS = (("a", "r1", "b"), ("b", "r2", "a"), ("a", "r3", "a"))
+HETERO_SMALL = (4000, 24_000, 9)
+HETERO_BIG = (BIG_N // 2, BIG_E // 3, 11)
+
+
+def hetero_graph(n_per_type: int, e_per_rel: int, seed: int):
+    """bench.py's hetero graph: dicts of features and edge indices, and the
+    generator after the draws."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    feat = {t: rng.normal(size=(n_per_type, HETERO_F)).astype(np.float32) for t in ("a", "b")}
+    ei = {
+        r: np.stack([rng.integers(0, n_per_type, e_per_rel), rng.integers(0, n_per_type, e_per_rel)])
+        for r in HETERO_RELS
+    }
+    return feat, ei, rng
+
+
+def hetero_model(node_types, relations, in_features, conv, fc, seed: int, device):
+    """A HeteroGNN of GCNConvs with weights and biases drawn from a seeded
+    ``torch.Generator`` (the same on every device)."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.models.adapter import Model
+    from bikg_graph_explainability_public_tpu_torch.models.gnn import hetero_gcn_for_relations
+
+    g = torch.Generator().manual_seed(seed)
+    mdef = hetero_gcn_for_relations(node_types, relations, in_features, conv_channels=conv,
+                                    fc_channels=fc, generator=g)
+    with torch.no_grad():
+        for name, p in mdef.named_parameters():
+            if name.startswith("conv.") and name.endswith("bias"):
+                p.uniform_(-0.1, 0.1, generator=g)
+    return Model(mdef, device=device)
+
+
+def phase_hetero_explanations(dev, config) -> None:
+    """``Explainer.run``'s arrays on heterogeneous dict inputs: bench.py's
+    hetero explanation graph (2 x 4000 nodes, 3 x 24,000 edges, seed 9)
+    with conv (128,), fc (128, 64): 4 node queries of type a and 4 edge
+    queries of relation (a, r1, b), each in Shapley mode and in community
+    mode (32 communities a type, or a relation), then the repo's hetero toy
+    example (9 nodes; examples/toy_example_hetero.py) in both modes, every
+    run held against the same run on the CPU.  Node and edge queries run
+    on receptive-field plans: no kernel."""
+    import numpy as np
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.explain.explainer import Explainer
+
+    n_per, e_per, seed = HETERO_SMALL
+    feat, ei, rng = hetero_graph(n_per, e_per, seed)
+    node_names = {t: [f"{t}{i}" for i in range(n_per)] for t in ("a", "b")}
+    edge_names = {r: [f"{r[1]}_{i}" for i in range(e_per)] for r in HETERO_RELS}
+    perm = np.random.default_rng(7)
+    node_comms = {t: [[v[j] for j in perm.permutation(n_per)[i::32]] for i in range(32)]
+                  for t, v in node_names.items()}
+    edge_comms = {r: [[v[j] for j in perm.permutation(e_per)[i::32]] for i in range(32)]
+                  for r, v in edge_names.items()}
+
+    def comm_names(comms):
+        return {k: [f"{k}_community_{i}" for i in range(len(c))] for k, c in comms.items()}
+
+    kinds = (
+        ("node", "node_prediction", node_names, "a", [f"a{int(q)}" for q in rng.integers(0, n_per, 4)],
+         node_comms),
+        ("edge", "edge_prediction", edge_names, HETERO_RELS[0],
+         [f"r1_{int(q)}" for q in rng.integers(0, e_per, 4)], edge_comms),
+    )
+    model = hetero_model(["a", "b"], HETERO_RELS, HETERO_F, (HIDDEN,), (HIDDEN, 64), seed, dev)
+    cpu_model = hetero_model(["a", "b"], HETERO_RELS, HETERO_F, (HIDDEN,), (HIDDEN, 64), seed, "cpu")
+    for kind, problem, names, etype, queries, comms in kinds:
+        for mode, kw in (("shapley", {}), ("community", dict(pathways=comms, pathway_names=comm_names(comms)))):
+            for q in queries:
+                t0 = time.perf_counter()
+                ex = Explainer(feat, ei, model, config, names, problem=problem, element_type=etype,
+                               device=dev, **kw)
+                ex, diag = ex._explain(q, times=1, return_diagnostics=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                phases = ", ".join(f"{k} {v:.4f} s" for k, v in diag["phase_seconds"].items())
+                cpu = Explainer(feat, ei, cpu_model, config, names, problem=problem,
+                                element_type=etype, device="cpu", **kw)._explain(q, times=1)
+                diff = _check_against_cpu(ex, cpu, f"hetero {kind} {mode} {q}")
+                log(f"hetero {kind} path 8000/72k conv (128,) {mode} query {q}: "
+                    f"{len(ex.names)} elements (subgraph {diag['subgraph_nodes']} nodes / "
+                    f"{diag['subgraph_edges']} edges), wall {wall:.3f} s; diagnostics: {phases}, "
+                    f"max |card - cpu| {diff:.3e} ok")
+
+    # examples/toy_example_hetero.py:28-47, with seeded weights
+    toy = np.random.default_rng(0)
+    feat = {"gene": toy.normal(size=(6, 8)).astype(np.float32),
+            "drug": toy.normal(size=(3, 8)).astype(np.float32)}
+    rels = [("gene", "interacts", "gene"), ("drug", "targets", "gene")]
+    ei = {rels[0]: np.array([[0, 1, 2, 3, 4, 5, 1, 2], [1, 0, 3, 2, 5, 4, 2, 1]]),
+          rels[1]: np.array([[0, 1, 2, 0], [0, 2, 4, 5]])}
+    names = {"gene": [f"g{i}" for i in range(6)], "drug": [f"d{i}" for i in range(3)]}
+    comms = dict(pathways={"gene": [["g0", "g1", "g2"], ["g3", "g4", "g5"]]},
+                 pathway_names={"gene": ["pathway-A", "pathway-B"]})
+    cfg = dict(config, interpret_samples=10, epochs=25)
+    for mode, kw in (("shapley", {}), ("community", comms)):
+        runs = {}
+        for where, d in (("card", dev), ("cpu", "cpu")):
+            m = hetero_model(["gene", "drug"], rels, 8, (8,), (8, 8), 0, d)
+            runs[where] = Explainer(feat, ei, m, cfg, names, problem="node_prediction",
+                                    element_type="gene", device=d, **kw)._explain("g1", times=3)
+        diff = _check_against_cpu(runs["card"], runs["cpu"], f"hetero toy {mode}")
+        log(f"hetero toy example (9 nodes, 12 edges) {mode}, gene g1, times 3: "
+            f"{len(runs['card'].names)} elements, max |card - cpu| {diff:.3e} ok")
+
+
+def scoped_kernel_timing(table, n_src, b, label) -> dict:
+    """Kernels 2.3 and 2.4 on one relation's type-scoped table at the ELL
+    tier's chunk width (``[n_src, b * 128]`` features, ``d1 - d0`` output
+    rows): each held against its plain version, then timed beside its
+    plain version and its bound from this table's data."""
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.ops import spmm_cuda as sc
+
+    err, feats, ps, plan, _ = check_kernel_case(table, b, HIDDEN, torch.float32, True, 5, f"{label} 2.3",
+                                               n_src=n_src)
+    n = table.nbr.shape[0]
+    w = b * HIDDEN
+    deg, nbr, valid = table.deg, table.nbr, table.valid > 0
+    sum_deg = int(deg.sum())
+    uniq = int(torch.unique(nbr[valid]).numel())
+    out = {"err_23": err}
+    out["ms_23"] = cuda_ms(lambda: sc.gather_sum_static(table, feats, b, post_scale=ps), 10)
+    out["plain_23"] = cuda_ms(lambda: sc.gather_sum_static_plain(table, feats, b, post_scale=ps), 2)
+    bytes_23 = uniq * w * 4 + sum_deg * 4 + n * 4 + n * b * 4 + n * w * 4
+    out["bound_23"] = max(bytes_23 / HBM_BYTES_PER_S, (sum_deg + n) * w / F32_OPS_PER_S) * 1e3
+    # yardstick only: cuSPARSE on the scoped 0/1 CSR [n, n_src], then the
+    # post-scale; NaN rows zeroed first (the sparse product reads no row
+    # twice, but 0 * NaN would not be 0 in a dense fallback)
+    rows = torch.arange(n, device=feats.device)[:, None].expand_as(nbr)[valid]
+    adj = torch.sparse_coo_tensor(torch.stack([rows, nbr[valid].long()]),
+                                  torch.ones(rows.numel(), device=feats.device),
+                                  (n, n_src)).coalesce().to_sparse_csr()
+    clean = torch.nan_to_num(feats, nan=0.0)
+
+    def library():
+        return (torch.sparse.mm(adj, clean).view(n, b, HIDDEN) * ps[:, :, None]).view(n, w)
+
+    if not torch.allclose(library(), sc.gather_sum_static_plain(table, clean, b, ps), rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"{label}: library yardstick computes another function")
+    out["library_23"] = cuda_ms(library, 5)
+    del feats, ps, adj, clean
+    feats, w_bnk = check_weighted_case(table, b, HIDDEN, torch.float32, 6, f"{label} 2.4", n_src=n_src)
+    out["ms_24"] = cuda_ms(lambda: sc.batched_gather_sum(table, None, feats, b, w_sample=w_bnk), 10)
+    w_slot = w_bnk.permute(1, 2, 0)
+    out["plain_24"] = cuda_ms(lambda: sc.batched_gather_sum_plain(table, feats, b, w_slot), 2)
+    bytes_24 = uniq * w * 4 + sum_deg * (4 + b * 4) + n * 4 + n * w * 4
+    out["bound_24"] = max(bytes_24 / HBM_BYTES_PER_S, 2 * sum_deg * w / F32_OPS_PER_S) * 1e3
+    log(f"{label}: N_out={n} N_src={n_src} K={table.k} sum_deg={sum_deg} band={plan.band}; "
+        f"2.3 ms={out['ms_23']:.4f} plain_ms={out['plain_23']:.4f} bound_ms={out['bound_23']:.4f} "
+        f"library_ms={out['library_23']:.4f} (torch.sparse.mm + scale); "
+        f"2.4 ms={out['ms_24']:.4f} plain_ms={out['plain_24']:.4f} bound_ms={out['bound_24']:.4f} (bytes)")
+    return out
+
+
+def phase_hetero_ell(dev, config, rec_23: dict, rec_24: dict) -> tuple:
+    """The hetero ELL tier on bench.py's full-graph hetero workload (2 x
+    50,000 nodes, 3 x 333,333 edges, seed 11) with conv (128, 128), fc
+    (128, 64): ``Explainer._explain`` on ``graph_prediction`` (1000 masks,
+    chunks of ``_ELL_CHUNK``), counting kernel 2.3's launches (one a
+    relation and chunk in layer 2, and in layer 1 too where its gather is
+    over budget); its set-up / forwards / rest split and a profile; then
+    the unrestricted edge forward (1000 edge masks, 70 % kept, query row
+    17), counting kernel 2.4's; one chunk of each against the plain route;
+    and both kernels on each relation's type-scoped table, held against
+    their plain versions and timed, with edge cases (K = 12, rows of degree
+    0, more source rows than output rows).  Adds the scoped timings to the
+    records; returns the launch counts of 2.3 and 2.4."""
+    import numpy as np
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.explain.explainer import Explainer, align_types
+    from bikg_graph_explainability_public_tpu_torch.graph import hetero_to_homo
+    from bikg_graph_explainability_public_tpu_torch.models.fast_hetero import FastBatchedHeteroGCN
+    from bikg_graph_explainability_public_tpu_torch.ops import spmm, spmm_cuda
+    from bikg_graph_explainability_public_tpu_torch.ops.ell import build_neighbor_table_edges
+
+    n_per, e_per, seed = HETERO_BIG
+    feat, ei, _ = hetero_graph(n_per, e_per, seed)
+    names = {t: [f"{t}{i}" for i in range(n_per)] for t in ("a", "b")}
+    model = hetero_model(["a", "b"], HETERO_RELS, HETERO_F, (HIDDEN, HIDDEN), (HIDDEN, 64), seed, dev)
+    n_layers = len(model.model_def.conv)
+    n_masks = int(config["interpret_samples"]) * int(config["epochs"])
+    chunk = FastBatchedHeteroGCN._ELL_CHUNK
+    n_chunks = -(-n_masks // chunk)
+    nrel = len(HETERO_RELS)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    ex = Explainer(feat, ei, model, config, names, problem="graph_prediction", device=dev)._explain(None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    fused = model._fast_cache[1]._ell.nbr_all is not None
+    model._fast_cache = (None, None)
+    launches_23 = n_chunks * nrel * (n_layers - 1 + (0 if fused else 1))
+    expect_counts(counts, {"gather_sum_static": launches_23}, "hetero graph path")
+    if not np.isfinite(ex.mean).all() or ex.mean.shape != (2 * n_per,):
+        raise AssertionError("hetero graph path: scores are not finite or of the wrong shape")
+    log(f"hetero graph path 100k/1M conv (128, 128): {n_masks} masks in {n_chunks} chunks of "
+        f"{chunk}, layer 1 {'fused product' if fused else 'kernel 2.3 (over budget)'}, "
+        f"wall {wall:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ok")
+
+    # where the time goes: the host set-up, the forwards on device masks,
+    # one profiled pass
+    t0 = time.perf_counter()
+    graph, info = hetero_to_homo(feat, ei, device=dev)
+    graph = align_types(graph, info, model.model_def)
+    engine = FastBatchedHeteroGCN(model.model_def, graph, restrict=False, device=dev)
+    ell = engine._ell_setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(f"hetero ELL tier: relation ranges (lo, hi, d0, d1) {ell.ranges}, K {[t.k for t in ell.tables]}, "
+        f"fused layer-1 gather {tuple(ell.g0_all.shape) if fused else None}")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    all_masks = torch.rand((n_masks, graph.n_pad), generator=gen, device=dev) < 0.5
+
+    def run():
+        return engine.query_outputs(all_masks, None, "graph_prediction")
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    log(f"hetero graph path breakdown: set-up (homogenise, upload, tables, layer-1 gather) "
+        f"{setup_s:.3f} s; {n_masks} forwards {fwd_s:.3f} s; rest of the explanation "
+        f"(mask sampling, transfer, surrogate fit) {wall - setup_s - fwd_s:.3f} s")
+    profile_forwards(run, fwd_s, "hetero graph path")
+    del all_masks
+
+    masks = torch.rand((chunk, graph.n_pad), generator=gen, device=dev) < 0.5
+    got = engine.query_outputs(masks, None, "graph_prediction")
+    spmm.gather_sum_static = spmm_cuda.gather_sum_static_plain
+    try:
+        want = engine.query_outputs(masks, None, "graph_prediction")
+    finally:
+        spmm.gather_sum_static = spmm_cuda.gather_sum_static
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"hetero graph chunk: kernel and plain routes differ by "
+                             f"{(got - want).abs().max().item():.3e}")
+    log(f"hetero graph path one chunk, kernel vs plain route: max abs diff "
+        f"{(got - want).abs().max().item():.3e} (rtol 1e-5, atol 1e-6) ok")
+
+    # the unrestricted edge forward
+    all_masks = torch.rand((n_masks, graph.e_pad), generator=gen, device=dev) > 0.3
+    all_masks[:, graph.num_edges:] = False
+
+    def run_edge():
+        return engine.query_outputs(all_masks, EDGE_QUERY, "edge_prediction")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_edge()
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    launches_24 = n_chunks * nrel * (n_layers - 1)
+    expect_counts(read_counts(), {"batched_gather_sum": launches_24}, "hetero ELL edge forward")
+    if out is None or out.shape != (n_masks,) or not torch.isfinite(out).all():
+        raise AssertionError("hetero ELL edge forward: outputs are missing, not finite or misshapen")
+    log(f"hetero ELL edge forward 100k/1M conv (128, 128): {n_masks} edge-mask forwards in "
+        f"{n_chunks} chunks of {chunk} {fwd_s:.3f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ok")
+    profile_forwards(run_edge, fwd_s, "hetero ELL edge forward")
+    masks = all_masks[:chunk]
+    del all_masks
+    got = engine.query_outputs(masks, EDGE_QUERY, "edge_prediction")
+    spmm.batched_gather_sum = (
+        lambda table, ew, feats, b, w_slot=None, w_sample=None:
+        spmm_cuda.batched_gather_sum_plain(
+            table, feats, b, w_slot if w_sample is None else w_sample.permute(1, 2, 0))
+    )
+    try:
+        want = engine.query_outputs(masks, EDGE_QUERY, "edge_prediction")
+    finally:
+        spmm.batched_gather_sum = spmm_cuda.batched_gather_sum
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"hetero edge chunk: kernel and plain routes differ by "
+                             f"{(got - want).abs().max().item():.3e}")
+    log(f"hetero ELL edge forward one chunk, kernel vs plain route: max abs diff "
+        f"{(got - want).abs().max().item():.3e} (rtol 1e-5, atol 1e-6) ok")
+    del masks, got, want
+
+    # both kernels at the type-scoped shapes of every relation
+    timings = []
+    for ri, (rel, (lo, hi, d0, d1)) in enumerate(zip(HETERO_RELS, ell.ranges)):
+        timings.append(scoped_kernel_timing(ell.tables[ri], hi - lo, chunk,
+                                            f"scoped kernels {'__'.join(rel)}"))
+    del engine, ell
+    # edge cases: K not a multiple of 8, rows of degree 0, sources beyond
+    # the output rows
+    rng = np.random.default_rng(12)
+    for i, (n_out, n_src, k, b, f) in enumerate(((3000, 7000, 12, 16, 64), (3000, 7000, 12, 48, 3),
+                                                 (5000, 2000, 20, 7, 20))):
+        src = rng.integers(0, n_src - 100, n_out * k // 2)
+        dst = rng.integers(0, n_out - 200, n_out * k // 2)
+        keep = np.bincount(dst, minlength=n_out)[dst] <= k
+        t = build_neighbor_table_edges(n_out, src[keep], dst[keep],
+                                       np.arange(int(keep.sum()), dtype=np.int32), k=k, device=dev)
+        err, *_ = check_kernel_case(t, b, f, torch.float32, True, 300 + i, f"scoped edge{i} 2.3",
+                                    n_src=n_src)
+        rec_23["max_abs_err"] = max(rec_23["max_abs_err"], err)
+        check_weighted_case(t, b, f, torch.float32, 310 + i, f"scoped edge{i} 2.4", n_src=n_src)
+    rec_23["max_abs_err"] = max([rec_23["max_abs_err"]] + [t["err_23"] for t in timings])
+    for rec, key in ((rec_23, "23"), (rec_24, "24")):
+        rec["scoped_ms"] = [t[f"ms_{key}"] for t in timings]
+        rec["scoped_plain_ms"] = [t[f"plain_{key}"] for t in timings]
+        rec["scoped_bound_ms"] = [t[f"bound_{key}"] for t in timings]
+    rec_23["scoped_library_ms"] = [t["library_23"] for t in timings]
+    return launches_23, launches_24
+
+
 def main() -> int:
     try:
         import torch
@@ -2118,6 +2465,12 @@ def main() -> int:
     reset_counts()
     phase_model_families(dev, config)
     expect_counts(read_counts(), {}, "model families (generic forward, segment operations)")
+    reset_counts()
+    phase_hetero_explanations(dev, config)
+    expect_counts(read_counts(), {}, "hetero node and edge paths (query plans)")
+    hetero_23, hetero_24 = phase_hetero_ell(dev, config, rec_23, rec_24)
+    rec_23["launches"] += hetero_23
+    rec_24["launches"] += hetero_24
     reset_counts()
     phase_explain_many(dev, config)
     expect_counts(read_counts(), {}, "explain_many (dense and coo formulations, plain torch)")

@@ -124,14 +124,12 @@ def test_private_step_returns_the_arrays_behind_run(toy):
 def test_explainer_checks_its_inputs(toy):
     feat, ei, names, cfg = toy
     tm = Model(GCNNodeModel(84), load_params(CKPT), device="cpu")
-    # heterogeneous communities are not ported
-    with pytest.raises(AssertionError):
-        texplainer.Explainer(
-            feat, ei, tm, cfg, names, pathways={"gene": [["1"]]}, pathway_names={"gene": ["a"]},
-            device="cpu",
-        )
-    with pytest.raises(NotImplementedError):
-        tpathways.Pathways({"gene": [["1"]]})
+    # heterogeneous inputs: an element type needs dict features, and dict
+    # communities need dict names
+    with pytest.raises(AssertionError, match="dict of node types"):
+        texplainer.Explainer(feat, ei, tm, cfg, names, element_type="gene", device="cpu")
+    with pytest.raises(ValueError, match="community names"):
+        tpathways.Pathways({"gene": [["1"]]}).hetero2homo("node_prediction")
     with pytest.raises(AssertionError):
         texplainer.Explainer(feat, ei, tm, cfg, names, problem="node", device="cpu")
     with pytest.raises(AssertionError, match="not present"):
