@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 #: Reference defaults (config/configs.json)
 DEFAULTS: Dict[str, Any] = {
@@ -53,6 +53,11 @@ class ExplainerConfig:
     weight_decay: float = 1e-2  # hardcoded in the reference (wlm.py:478)
     pad_mode: str = "pow2"  # subgraph capacity bucketing
     forward_chunk: Optional[int] = None  # masks per forward step
+    # accepted so that configurations carry over: a mesh is not ported
+    # (validate() refuses one), and the port computes in float32 throughout,
+    # so matmul_precision has nothing to choose
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    matmul_precision: str = "default"  # "default" | "highest"
     spmm_backend: str = "auto"
 
     def validate(self) -> "ExplainerConfig":
@@ -70,6 +75,8 @@ class ExplainerConfig:
         if self.pad_mode not in ("pow2", "multiple", "exact"):
             raise ValueError(f"unknown pad_mode {self.pad_mode!r}")
         check_spmm_backend(self.spmm_backend)
+        if self.mesh_shape is not None:
+            raise NotImplementedError("mesh_shape: a device mesh is not ported")
         return self
 
     def to_dict(self) -> Dict[str, Any]:

@@ -8,15 +8,27 @@ training) runs over a stack of Q budget-padded computational subgraphs: every
 operation carries the query axis, so one pass of device work explains Q
 queries.
 
-Two forward formulations, chosen per (model, problem):
+Three forward formulations, chosen per (model, problem):
 
 * **dense**: homogeneous :class:`..models.gnn.GCNNodeModel` node problems,
   the mask-scaled dense-adjacency forward over a ``[Q, n, n]`` stack (the
   throughput path; plain batched matmuls).
-* **coo**: everything else homogeneous (edge and graph problems, the other
-  model families): the stacked subgraphs stay in COO form and the model's
-  own forward runs with per-sample edge weights, the Q subgraphs side by
-  side as one block-diagonal graph.
+* **hetero_dense**: node problems of a :class:`..models.gnn.HeteroGNN`
+  whose convs are all default GCNConvs: the same forward per relation over
+  ``[Q, R, n, n]`` adjacencies, each relation's self-loops and bias on its
+  destination type only (PyG ``HeteroConv`` with ``aggr='sum'``).
+* **coo**: everything else (edge and graph problems, hetero models with
+  other convs, the other model families): the stacked subgraphs stay in
+  COO form and the model's own forward runs with per-sample edge weights,
+  the Q subgraphs side by side as one block-diagonal graph, with their node
+  and edge types where the model is typed.
+
+A hetero graph's type ids are positions, as in the JAX package: node type
+``i`` is ``model_def.node_type_names[i]`` and edge type ``ri`` is
+``model_def.relations[ri]`` (what :func:`..graph.hetero_to_homo` gives when
+the feature and edge dicts follow the model's order).  Ids outside the
+model's lists raise ``ValueError``; matching types by name is the
+``Explainer``'s, which has the names.
 
 Loss-normalisation parity: in community mode each query's rows are laid out
 ``[epochs, bs_q]`` exactly as the single-query ``Explainer`` batches them,
@@ -31,7 +43,7 @@ fold_in(PRNGKey(seed), repeat), original query position)``, then
 surrogate's initialisation.  So the same seed gives the JAX package's
 ``explain_many`` scores.
 
-Not ported: hetero models and ``mesh=`` (both raise ``NotImplementedError``).
+Not ported: ``mesh=`` (raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -46,7 +58,10 @@ import torch
 
 from ..graph import Graph, host_view
 from ..models.fast_gcn import dense_gcn_layers, dense_mask_scales
-from ..models.gnn import GCNNodeModel
+from ..models.fast_hetero import (
+    dense_hetero_gcn_layers, dense_hetero_mask_scales, is_hetero_gcn,
+)
+from ..models.gnn import GCNNodeModel, HeteroGNN
 from ..ops.khop import Subgraph, extract_khop_subgraph
 from ..utils import prng
 from ..utils.padding import round_up_pow2
@@ -256,17 +271,19 @@ class _Stack:
 
     ``need_edges``: keep the COO arrays only (the coo formulation); else
     build the dense adjacencies ``adjs [Q, n, n]`` (``adjs[q, v, u]`` counts
-    the non-loop edges u -> v).  ``full_graph``: graph problems explain the
-    pooled prediction of the WHOLE graph, so every "query" is an
-    independent repeat over it.  ``rel_model`` (a hetero model's per-relation
-    stacks) is not ported.
+    the non-loop edges u -> v), or with ``rel_model`` (a
+    :class:`..models.gnn.HeteroGNN`) one per relation, ``adjs_r [Q, R, n,
+    n]`` (relation ``ri``'s non-loop edges), with each relation's
+    destination-type scope ``scopes [Q, R, n]`` (1.0 on valid nodes of the
+    type ``rel[-1]``).  ``typed``: also keep the node and edge type ids
+    ``ntype [Q, n]`` and ``etype [Q, e]`` (padding has type 0).
+    ``full_graph``: graph problems explain the pooled prediction of the
+    WHOLE graph, so every "query" is an independent repeat over it.
     """
 
     def __init__(self, graph: Graph, queries: Sequence[int], n_hops: int,
-                 need_edges: bool, full_graph: bool = False,
+                 need_edges: bool, typed: bool = False, full_graph: bool = False,
                  subs: Optional[list] = None, rel_model=None):
-        if rel_model is not None:
-            raise NotImplementedError("hetero stacks are not ported yet")
         if subs is None and full_graph:
             hv = host_view(graph)
             subs = [
@@ -285,7 +302,18 @@ class _Stack:
         self.n_pad, self.e_pad, self.qn = n_pad, e_pad, qn
 
         self.xs = np.zeros((qn, n_pad, graph.num_features), np.float32)
-        self.adjs = None if need_edges else np.zeros((qn, n_pad, n_pad), np.float32)
+        self.adjs = (
+            None if need_edges or rel_model is not None
+            else np.zeros((qn, n_pad, n_pad), np.float32)
+        )
+        self.adjs_r = self.scopes = None
+        if rel_model is not None:
+            nrel = len(rel_model.relations)
+            self.adjs_r = np.zeros((qn, nrel, n_pad, n_pad), np.float32)
+            self.scopes = np.zeros((qn, nrel, n_pad), np.float32)
+            dst_types = [rel_model.node_type_names.index(r[-1]) for r in rel_model.relations]
+        self.ntype = np.zeros((qn, n_pad), np.int64) if typed else None
+        self.etype = np.zeros((qn, e_pad), np.int64) if typed else None
         self.snds = np.zeros((qn, e_pad), np.int64)
         self.rcvs = np.zeros((qn, e_pad), np.int64)
         self.evalid = np.zeros((qn, e_pad), np.float32)
@@ -304,9 +332,18 @@ class _Stack:
             self.snds[i, :e] = snd
             self.rcvs[i, :e] = rcv
             self.evalid[i, :e] = 1.0
+            keep = snd != rcv
+            if typed:
+                self.ntype[i, :n] = hv.node_type[:n]
+                self.etype[i, :e] = hv.edge_type[:e]
             if self.adjs is not None:
-                keep = snd != rcv
                 np.add.at(self.adjs[i], (rcv[keep], snd[keep]), 1.0)
+            if self.adjs_r is not None:
+                et, nt, valid = hv.edge_type[:e], hv.node_type[:n], hv.node_mask[:n]
+                for ri, dt in enumerate(dst_types):
+                    sel = keep & (et == ri)
+                    np.add.at(self.adjs_r[i, ri], (rcv[sel], snd[sel]), 1.0)
+                    self.scopes[i, ri, :n] = (nt == dt) & valid
             self.qidx[i] = s.query
             self.nvalid[i] = n
             self.evalid_count[i] = e
@@ -419,7 +456,7 @@ def _train(masks, outputs, kern, keys, n_elements, col_valid, epochs: int,
 
 
 # ---------------------------------------------------------------------------
-# the two forward formulations, over the query axis
+# the three forward formulations, over the query axis
 # ---------------------------------------------------------------------------
 
 
@@ -444,14 +481,41 @@ def _dense_outputs(model_def: GCNNodeModel, x, adj, query, masks, chunk: int) ->
     return torch.cat(outs, dim=1)
 
 
-def _coo_outputs(model_def, problem: str, x, snd, rcv, evalid, query, n_valid,
-                 masks, chunk: int) -> torch.Tensor:
+def _hetero_dense_outputs(model_def: HeteroGNN, x, adj_r, scope, query, masks,
+                          chunk: int) -> torch.Tensor:
+    """Dense mask-scaled forward of a hetero GCN (node problems): the query
+    rows' outputs ``[Q, M]`` for masks ``[Q, M, n]`` over per-relation
+    adjacencies ``adj_r [Q, R, n, n]``, destination-type scopes ``scope
+    [Q, R, n]`` and features ``[Q, n, F]``, ``chunk`` rows at a time,
+    through the hetero engine's dense layers
+    (:func:`..models.fast_hetero.dense_hetero_gcn_layers`) with the query
+    axis leading.
+    """
+    nq, n_masks, _ = masks.shape
+    # the first layer's transformed features, shared by every mask
+    xw0 = [x[..., : c.in_features] @ c.weight.T for c in model_def.conv_layers[0].values()]
+    qi = torch.arange(nq, device=x.device)
+    outs = []
+    for c0 in range(0, n_masks, chunk):
+        m = masks[:, c0 : c0 + chunk].to(torch.float32).transpose(1, 2)  # [Q, n, B]
+        s, self_w = dense_hetero_mask_scales(adj_r, scope, m)
+        # the [Q, n, B, C] activations die here, before the next chunk's
+        h_query = dense_hetero_gcn_layers(adj_r, scope, s, self_w, xw0,
+                                          model_def.conv_layers)[qi, query]
+        outs.append(model_def.head(h_query)[..., 0])  # [Q, B]
+    return torch.cat(outs, dim=1)
+
+
+def _coo_outputs(model_def, problem: str, x, snd, rcv, evalid, ntype, etype, query,
+                 n_valid, masks, chunk: int) -> torch.Tensor:
     """Generic formulation: the model's own forward with per-sample edge
     weights ``evalid * (m if edge else m[snd] * m[rcv])``; returns ``[Q, M]``
     (the query row's output, or the mean over valid nodes for graph
     problems).  The Q subgraphs run side by side as one block-diagonal
     graph (node ``v`` of query ``q`` is ``q * n + v``), which no operation
-    of a homogeneous model mixes."""
+    mixes: a relation mixes rows only along its edges.  A typed model also
+    gets the node and edge types ``ntype [Q, n]`` / ``etype [Q, e]``
+    (None for an untyped one), flattened in the same order."""
     is_edge = "edge" in problem
     is_graph = "graph" in problem
     nq, n_masks, _ = masks.shape
@@ -460,6 +524,7 @@ def _coo_outputs(model_def, problem: str, x, snd, rcv, evalid, query, n_valid,
     xf = x.reshape(nq * n, x.shape[2])
     snd_f = (snd + off).reshape(-1)
     rcv_f = (rcv + off).reshape(-1)
+    types = () if ntype is None else (ntype.reshape(-1), etype.reshape(-1))
     node_ok = (torch.arange(n, device=x.device)[None, :] < n_valid[:, None]).to(torch.float32)
     e = snd.shape[1]
     outs = []
@@ -472,7 +537,7 @@ def _coo_outputs(model_def, problem: str, x, snd, rcv, evalid, query, n_valid,
             ms = torch.gather(mf, 2, snd[:, None, :].expand(nq, b, e))
             mr = torch.gather(mf, 2, rcv[:, None, :].expand(nq, b, e))
             ew = evalid[:, None, :] * (ms * mr)
-        out = model_def(xf, snd_f, rcv_f, ew.transpose(0, 1).reshape(b, nq * e))
+        out = model_def(xf, snd_f, rcv_f, ew.transpose(0, 1).reshape(b, nq * e), *types)
         out = out[..., 0].reshape(b, nq, n).transpose(0, 1)  # [Q, B, n]
         if is_graph:
             outs.append(
@@ -512,9 +577,12 @@ def _run_stack(kind: str, model_def, problem: str, entry: dict, t: int,
     with _phase(timer, "forwards", dev):
         if kind == "dense":
             outputs = _dense_outputs(model_def, d["x"], d["adj"], d["q"], masks, chunk)
+        elif kind == "hetero_dense":
+            outputs = _hetero_dense_outputs(model_def, d["x"], d["adj_r"], d["scope"],
+                                            d["q"], masks, chunk)
         else:
-            outputs = _coo_outputs(model_def, problem, d["x"], d["snd"], d["rcv"],
-                                   d["ev"], d["q"], d["nv"], masks, chunk)
+            outputs = _coo_outputs(model_def, problem, d["x"], d["snd"], d["rcv"], d["ev"],
+                                   d.get("nt"), d.get("et"), d["q"], d["nv"], masks, chunk)
     with _phase(timer, "kernel_weights_and_training", dev):
         kern = _kernel_weights(masks, ne)
         return _train(masks, outputs, kern, prng.fold_in_tensor(keys, 1), ne,
@@ -526,14 +594,27 @@ def _run_stack(kind: str, model_def, problem: str, entry: dict, t: int,
 # ---------------------------------------------------------------------------
 
 
-def _check_ported(model, mesh) -> None:
+def _check_inputs(model, graph: Graph, mesh) -> None:
+    """Refuse ``mesh=`` (not ported), and a hetero graph whose type ids
+    name no type of the model (ids are positions in the model's
+    ``node_type_names`` and ``relations``)."""
     if mesh is not None:
         raise NotImplementedError(
             "explain_many(mesh=...) needs parallel/, which is not ported yet"
         )
     mdef = model.model_def
-    if hasattr(mdef, "relations") or hasattr(mdef, "conv_layers"):
-        raise NotImplementedError("explain_many for hetero models is not ported yet")
+    if not isinstance(mdef, HeteroGNN):
+        return
+    hv = host_view(graph)
+    for what, ids, names in (
+        ("node type", hv.node_type[: graph.num_nodes], mdef.node_type_names),
+        ("edge type", hv.edge_type[: graph.num_edges], mdef.relations),
+    ):
+        if ids.size and (ids.min() < 0 or ids.max() >= len(names)):
+            raise ValueError(
+                f"the graph's {what} ids reach {int(ids.max())}, but the model has "
+                f"{len(names)} ({names}); ids are positions in the model's lists"
+            )
 
 
 def explain_many(
@@ -564,7 +645,9 @@ def explain_many(
     (Configuration-Value mode).  ``size_buckets``: group queries by their
     subgraph's (node, edge) pow2 budget, one stack each; a query's draws
     then depend only on its own bucket (``False``: one stack padded to the
-    largest).  ``mesh`` and hetero models raise ``NotImplementedError``.
+    largest).  A hetero model takes the graph's type ids as positions in
+    its ``node_type_names`` and ``relations`` (``ValueError`` outside
+    them).  ``mesh`` raises ``NotImplementedError``.
     """
     exs = _explain_many(
         model, graph, queries, params_cfg, names, times, chunk, mesh,
@@ -604,7 +687,7 @@ def _explain_many(
     ``kernel_weights_and_training``, ``fetch_and_assembly``), synchronising
     the device at each phase's exit.
     """
-    _check_ported(model, mesh)
+    _check_inputs(model, graph, mesh)
     is_graph = "graph" in problem
     n_hops = model.model_def.num_hops + 1
     fp = (
@@ -678,14 +761,19 @@ def _explain_many_stacked(
     Returns ``(weights, build)``: the per-repeat ``[Q, W]`` weights, still
     on the device, and ``build(fetched)``, which turns their host copies
     into one :class:`.explainer.Explanation` per query.  Homogeneous
-    ``GCNNodeModel`` node problems run the dense formulation, every other
-    homogeneous model and problem the coo one.  ``fp``: the content
-    fingerprints of ``pathways`` and ``names``.
+    ``GCNNodeModel`` node problems run the dense formulation, node problems
+    of a hetero GCN the hetero_dense one, every other model and problem the
+    coo one.  ``fp``: the content fingerprints of ``pathways`` and
+    ``names``.
     """
     model_def = model.model_def
-    is_edge = "edge" in problem
-    is_graph = "graph" in problem
-    kind = "dense" if isinstance(model_def, GCNNodeModel) and not is_edge and not is_graph else "coo"
+    node_problem = "edge" not in problem and "graph" not in problem
+    if node_problem and isinstance(model_def, GCNNodeModel):
+        kind = "dense"
+    elif node_problem and is_hetero_gcn(model_def):
+        kind = "hetero_dense"
+    else:
+        kind = "coo"
     n_hops = model_def.num_hops + 1
 
     epochs = int(params_cfg["epochs"])
@@ -774,13 +862,16 @@ def _build_launch_plan(
     pure-function-of-inputs stage of :func:`_explain_many_stacked`."""
     is_edge = "edge" in problem
     is_graph = "graph" in problem
-    dense = kind == "dense"
+    # only the coo route reads type ids (the hetero_dense one has them in
+    # its per-relation adjacencies and scopes)
+    typed = model._typed and kind == "coo"
     dev = model.device
 
     if subs is None and not is_graph:
         subs = [_subgraph_cached(graph, s, n_hops) for s in _seed_nodes(graph, queries, problem)]
     st = _Stack(graph, _seed_nodes(graph, queries, problem), n_hops,
-                need_edges=not dense, full_graph=is_graph, subs=subs)
+                need_edges=kind == "coo", typed=typed, full_graph=is_graph, subs=subs,
+                rel_model=model.model_def if kind == "hetero_dense" else None)
     qn = st.qn
     if orig_pos is None:
         orig_pos = np.arange(qn, dtype=np.int64)
@@ -848,10 +939,14 @@ def _build_launch_plan(
         chunk -= 1
 
     base = {"x": st.xs, "q": st.qidx, "nv": st.nvalid, "ne": n_elem_arr, "bs": bs_real}
-    if dense:
+    if kind == "dense":
         base["adj"] = st.adjs
+    elif kind == "hetero_dense":
+        base.update(adj_r=st.adjs_r, scope=st.scopes)
     else:
         base.update(snd=st.snds, rcv=st.rcvs, ev=st.evalid)
+        if typed:
+            base.update(nt=st.ntype, et=st.etype)
     return {
         "qn": qn,
         "parents": st.parent_edges if is_edge else st.parent_nodes,

@@ -1,8 +1,8 @@
 """Explainer orchestrator (reference L6, ``src/pathway_explanations/explainer.py``).
 
 Construct with (feat, edge_index, model, params, names, pathways,
-pathway_names, problem), call ``run(element, times)``, receive two sorted
-pandas DataFrames.  Its private step ``Explainer._explain`` is the same run
+pathway_names, element_type, problem), call ``run(element, times)``,
+receive two sorted pandas DataFrames.  Its private step ``Explainer._explain`` is the same run
 returning numpy arrays; it needs no pandas.
 
 Every random draw derives from ``params['seed']``: the repeat index is
@@ -39,10 +39,18 @@ from ..models.adapter import Model
 from ..ops.khop import extract_khop_subgraph
 from ..utils.device import resolve_device
 from ..utils.profiling import PhaseTimer
-from ..utils.prng import repeat_split_key_data
+from ..utils.prng import repeat_split_key_data, root_key
 from .masks import MaskSampler
 from .pathways import Pathways, pathway_dataframe
 from .wlm import train_model, train_model_repeats
+
+
+def set_seed(seed: int = 100) -> np.ndarray:
+    """API-parity shim for the reference's global seeding
+    (``explainer.py:14-22``): the root key words of ``seed`` (``[2]``
+    uint32, :mod:`..utils.prng`).  Nothing global is seeded; the Explainer
+    derives every key from ``params['seed']``."""
+    return root_key(int(seed))
 
 
 def extract_index(element, names=None) -> int:
@@ -113,6 +121,7 @@ def align_types(graph: Graph, info: HeteroInfo, model_def) -> Graph:
     nt[:n], et[:e] = node_perm[nt[:n]], edge_perm[et[:e]]
     return graph_from_numpy(
         graph.device, **arrays, node_type=nt, edge_type=et, num_nodes=n, num_edges=e,
+        typed=graph.typed,
     )
 
 
@@ -144,12 +153,13 @@ class Explainer:
         ``edge_prediction``; a dict of such lists for a heterogeneous graph
     pathways / pathway_names : community structure (None → Shapley mode),
         lists or dicts keyed by type
-    problem : "node_prediction" | "edge_prediction" | "graph_prediction"
     element_type : the query's node type (str) or relation (tuple) in a
         heterogeneous graph; names are then looked up in its block only
+    problem : "node_prediction" | "edge_prediction" | "graph_prediction"
     node_types / edge_types : type vectors of a homogeneous-array graph
     device : where the graph lives; ``None`` means the CUDA card.  It must
-        be the model's device.
+        be the model's device.  The reference's parameters keep their
+        positions; ``device`` comes after them.
     """
 
     def __init__(
@@ -161,11 +171,11 @@ class Explainer:
         names,
         pathways=None,
         pathway_names=None,
-        problem: str = "node_prediction",
-        device=None,
         element_type=None,
+        problem: str = "node_prediction",
         node_types=None,
         edge_types=None,
+        device=None,
     ):
         self.initial_assertions(
             feat, edge_index, model, params, names, pathways, pathway_names, element_type, problem
@@ -281,7 +291,7 @@ class Explainer:
                     node_pointers=dict(zip(info.node_type_names, info.node_pointers)),
                     edge_pointers=dict(zip(info.edge_type_names, info.edge_pointers)),
                 )
-            pathways, pathway_names, _ = Pathways(pathways, pathway_names).hetero2homo(
+            pathways, pathway_names, pathway_types = Pathways(pathways, pathway_names).hetero2homo(
                 self.problem, **pointers
             )
 
@@ -314,9 +324,9 @@ class Explainer:
                 kept = sub.parent_nodes[: sub_graph.num_nodes]
                 sub_names = names_array[kept].tolist()
             if pathways is not None:
-                pathways, pathway_names = Pathways(pathways, pathway_names).comp_graph(
-                    sub_names
-                )
+                pathways, pathway_names, _ = Pathways(
+                    pathways, pathway_names, pathway_types
+                ).comp_graph(sub_names)
         else:
             # graph problems explain the pooled prediction: no query element
             sub_graph = graph

@@ -48,3 +48,30 @@ def shap_kernel(
         logw = logw - safe.max(dim=-1, keepdim=True).values
     w = torch.exp(logw)
     return torch.where(valid, w, torch.zeros_like(w))
+
+
+def approximate_shap_kernel_parity(
+    mask: torch.Tensor, num_valid_columns: Optional[int] = None, ref: int = 1000
+) -> torch.Tensor:
+    """Behavioural-parity port of the reference's >1000-element approximation
+    (``kernels.py:22-80``): a scaled C(ref, k*ref/n) lookup, normalised to
+    max 1 as :func:`shap_kernel` is.  Kept only so the two weighting schemes
+    can be compared; the log-space kernel is exact and is the default."""
+    s_eff = num_valid_columns if num_valid_columns is not None else mask.shape[1]
+    num_active = mask.sum(dim=1).to(torch.float32)
+    num_total = float(s_eff - 1)
+    f32 = dict(dtype=torch.float32, device=mask.device)
+    idx_grid = torch.arange(ref, **f32)
+    log_choose = _log_binom(torch.tensor(float(ref), **f32), idx_grid)
+    index = torch.clamp((num_active * 1000.0 / num_total).to(torch.int32), 0, ref - 1)
+    total = torch.tensor(num_total, **f32)
+    log_kernel = (
+        torch.log(total)
+        - (log_choose[index.long()] + torch.log(total / 1000.0))
+        - torch.log(torch.clamp(num_active, min=1e-30))
+        - torch.log(torch.clamp(total - num_active, min=1e-30))
+    )
+    valid = (num_active >= 1.0) & (num_active <= num_total)
+    safe = torch.where(valid & torch.isfinite(log_kernel), log_kernel,
+                       torch.full_like(log_kernel, -1e30))
+    return torch.where(valid, torch.exp(log_kernel - safe.max()), torch.zeros_like(log_kernel))

@@ -22,14 +22,18 @@ class Pathways:
     ``community_names`` defaults to indices for a list, and for a dict is a
     dict of name lists with the same keys.  A dict of communities is
     copied: shifting integer communities changes the copy, never the
-    caller's lists.
+    caller's lists.  ``community_types``: each community's type position
+    (what :meth:`hetero2homo` returns beside the flat list), carried
+    through :meth:`comp_graph`.
     """
 
-    def __init__(self, communities, community_names=None):
+    def __init__(self, communities, community_names=None,
+                 community_types: Optional[np.ndarray] = None):
         if isinstance(communities, dict):
             communities = {k: [list(c) for c in v] for k, v in communities.items()}
         self.communities = communities
         self.community_names = community_names
+        self.community_types = community_types
         if self.community_names is None and not isinstance(communities, dict):
             self.community_names = np.arange(len(communities)).tolist()
 
@@ -70,20 +74,26 @@ class Pathways:
             names.extend(self.community_names[key])
         return flat, names, np.concatenate(types)
 
-    def comp_graph(self, names: Sequence) -> Tuple[list, list]:
+    def comp_graph(self, names: Sequence) -> Tuple[list, list, Optional[np.ndarray]]:
         """Keep only the part of each community that intersects the
-        computational graph; drop empty communities.
+        computational graph; drop empty communities.  Returns the kept
+        communities, their names and their types (None without
+        ``community_types``).
 
         ``np.intersect1d`` string semantics preserved: the surviving elements
         of each community come back sorted lexicographically as strings."""
         names_array = np.array(names, dtype=str)
-        sub_pathway, sub_names = [], []
-        for community, cname in zip(self.communities, self.community_names):
+        sub_pathway, sub_names, kept = [], [], []
+        for i, (community, cname) in enumerate(zip(self.communities, self.community_names)):
             common = np.intersect1d(np.array(community, dtype=str), names_array)
             if len(common) > 0:
                 sub_pathway.append(common.tolist())
                 sub_names.append(cname)
-        return sub_pathway, sub_names
+                kept.append(i)
+        sub_types = None
+        if self.community_types is not None:
+            sub_types = np.asarray(self.community_types)[np.asarray(kept, np.int64)]
+        return sub_pathway, sub_names, sub_types
 
     def names2inds(self, names: Sequence) -> List[List[int]]:
         """Element-name lists -> index lists against the subgraph's names

@@ -74,6 +74,8 @@ class Graph:
       node_type:  [N_pad] int32 — node type id (0 for homogeneous)
       edge_type:  [E_pad] int32 — edge type id (0 for homogeneous)
       num_nodes / num_edges: actual (unpadded) counts.
+      typed:      whether the type vectors are meaningful (heterogeneous
+                  origin).
     """
 
     x: torch.Tensor
@@ -85,11 +87,11 @@ class Graph:
     edge_type: torch.Tensor
     num_nodes: int
     num_edges: int
-    host: HostView = dataclasses.field(default=None, repr=False)
+    typed: bool = False
+    host: HostView = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self):
-        if self.host is None:
-            object.__setattr__(self, "host", HostView(self))
+        object.__setattr__(self, "host", HostView(self))
 
     @property
     def device(self) -> torch.device:
@@ -111,6 +113,17 @@ class Graph:
         """Feature width F."""
         return self.x.shape[1]
 
+    def edge_index(self) -> torch.Tensor:
+        """[2, E_pad] COO edge index (reference layout, ``data.py:29``)."""
+        return torch.stack([self.senders, self.receivers], dim=0)
+
+    def with_features(self, x: torch.Tensor) -> "Graph":
+        """Copy of this graph with a replaced [N_pad, F] feature matrix; its
+        host view keeps every cached array but the features."""
+        g = dataclasses.replace(self, x=x)
+        g.host._cache.update({k: v for k, v in self.host._cache.items() if k != "x"})
+        return g
+
 
 def host_view(graph: Graph) -> HostView:
     """The :class:`HostView` of ``graph``."""
@@ -129,6 +142,7 @@ def graph_from_numpy(
     edge_type: np.ndarray,
     num_nodes: int,
     num_edges: int,
+    typed: bool = False,
 ) -> Graph:
     """Upload padded numpy arrays and keep them as the graph's host view."""
     arrays = dict(
@@ -141,7 +155,7 @@ def graph_from_numpy(
     }
     t["senders"] = t["senders"].long()
     t["receivers"] = t["receivers"].long()
-    g = Graph(**t, num_nodes=int(num_nodes), num_edges=int(num_edges))
+    g = Graph(**t, num_nodes=int(num_nodes), num_edges=int(num_edges), typed=bool(typed))
     g.host._cache.update(arrays)
     return g
 
@@ -194,6 +208,7 @@ def from_arrays(
     return graph_from_numpy(
         dev, x=x, senders=snd, receivers=rcv, node_mask=nmask, edge_mask=emask,
         node_type=nt, edge_type=et, num_nodes=n, num_edges=e,
+        typed=node_type is not None or edge_type is not None,
     )
 
 

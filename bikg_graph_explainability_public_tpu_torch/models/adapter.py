@@ -15,7 +15,7 @@ from torch import nn
 
 from ..graph import Graph
 from ..utils.device import resolve_device
-from .gnn import GCNNodeModel, HeteroGNN
+from .gnn import GCNNodeModel, HeteroGNN, takes_types
 
 
 class Model:
@@ -57,9 +57,8 @@ class Model:
     @property
     def _typed(self) -> bool:
         """Whether the model's forward also takes ``(node_type,
-        edge_type)``: :class:`.gnn.HeteroGNN`, or a model declaring ``typed
-        = True``."""
-        return isinstance(self.model_def, HeteroGNN) or getattr(self.model_def, "typed", False)
+        edge_type)`` (:func:`.gnn.takes_types`)."""
+        return takes_types(self.model_def)
 
     def forward_fn(self, graph: Graph) -> Callable[[torch.Tensor], torch.Tensor]:
         """``edge_weight -> per-node output`` with the graph captured."""

@@ -132,6 +132,62 @@ def _assemble(pieces: Dict[Tuple[int, int], torch.Tensor], n: int) -> torch.Tens
     return h
 
 
+def dense_hetero_mask_scales(adj_r: torch.Tensor, scope: torch.Tensor,
+                             m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The node-mask scales of the dense hetero GCN layer, over any leading
+    batch axes: node-major float masks ``m [..., n, B]`` over per-relation
+    adjacencies ``adj_r [..., R, n, n]`` (``adj_r[r, v, u]`` counts the
+    non-loop edges u -> v of relation r) and destination-type scopes
+    ``scope [..., R, n]``.  Returns ``(s, self_w)``, both ``[..., R, n,
+    B]``: ``s = m * deg_r^-1/2`` and ``self_w = scope_r / deg_r`` with
+    ``deg_r = scope_r + m * (A_r @ m)`` (0 where ``deg_r`` is 0)."""
+    m = m.contiguous()[..., None, :, :]  # [..., 1, n, B]
+    sc = scope[..., None]
+    dis = _rsqrt0(sc + m * (adj_r @ m))
+    return m * dis, sc * dis * dis
+
+
+def dense_hetero_gcn_layers(adj_r, scope, s, self_w, xw0, conv_layers) -> torch.Tensor:
+    """The mask-scaled dense hetero GCN layers over any leading batch axes:
+    relation ``r`` of a layer is ``s_r * (A_r @ (s_r * HW_r)) + self_r *
+    HW_r + b_r * scope_r``, and the layer is the ReLU of the sum over
+    relations.
+
+    ``adj_r [..., R, n, n]`` and ``scope [..., R, n]`` as in
+    :func:`dense_hetero_mask_scales`, which gives ``s`` and ``self_w``;
+    ``xw0`` indexed by relation, ``xw0[r] [..., n, C]``, the first layer's
+    transformed features, shared by every mask; ``conv_layers`` the model's
+    ``ModuleDict``s in relation order.  Activations are node-major ``[...,
+    n, B, C]`` as in :func:`.fast_gcn.dense_gcn_layers`, one product ``A_r
+    @ [n, B*C]`` per relation a layer; returns the last layer's.
+    """
+    h = None
+    for li, layer in enumerate(conv_layers):
+        out = None
+        for ri, conv in enumerate(layer.values()):
+            sr = s[..., ri, :, :, None]
+            hw = xw0[ri][..., None, :] if li == 0 else h[..., : conv.in_features] @ conv.weight.T
+            t = sr * hw
+            t = sr * (adj_r[..., ri, :, :] @ t.flatten(-2)).view(t.shape)
+            t += self_w[..., ri, :, :, None] * hw
+            if conv.bias is not None:
+                t += conv.bias * scope[..., ri, :, None, None]
+            out = t if out is None else out.add_(t)
+        h = relu(out)
+    return h
+
+
+def is_hetero_gcn(model_def) -> bool:
+    """Whether ``model_def`` is a :class:`.gnn.HeteroGNN` whose convs are
+    all default GCNConvs (normalised, with self-loops, not ``improved``):
+    the model the engine computes."""
+    return isinstance(model_def, HeteroGNN) and all(
+        isinstance(c, GCNConv) and c.normalize and c.add_self_loops and not c.improved
+        for layer in model_def.conv_layers
+        for c in layer.values()
+    )
+
+
 class FastBatchedHeteroGCN:
     """Batched masked forward engine for one (HeteroGNN of GCNConvs, graph)
     pair.  ``device=None`` means the CUDA card; the graph must live there.
@@ -149,11 +205,7 @@ class FastBatchedHeteroGCN:
     _G0_BUDGET_BYTES = 6 << 30
 
     def __init__(self, model_def: HeteroGNN, graph, restrict: bool = True, device=None):
-        if not isinstance(model_def, HeteroGNN) or not all(
-            isinstance(c, GCNConv) and c.normalize and c.add_self_loops and not c.improved
-            for layer in model_def.conv_layers
-            for c in layer.values()
-        ):
+        if not is_hetero_gcn(model_def):
             raise TypeError("the fast hetero engine needs a HeteroGNN of default GCNConvs")
         self.device = resolve_device(device)
         if graph.device != self.device:
@@ -204,35 +256,13 @@ class FastBatchedHeteroGCN:
             self._adj = torch.from_numpy(adjs).to(self.device)
         return self._adj
 
-    def _layer_terms(self, masks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Node-major ``(s, self_w)``, each ``[R, N, B]``: ``s = m *
-        deg_r^-1/2`` and ``self_w = scope_r / deg_r`` with ``deg_r = scope_r
-        + m * (A_r @ m)``."""
-        m = masks.float().t().contiguous()  # [N, B]
-        deg = self.scope[:, :, None] + m * (self.adj @ m)
-        dis = _rsqrt0(deg)
-        return m * dis, self.scope[:, :, None] * dis * dis
-
     @torch.no_grad()
     def batch_node_outputs(self, masks: torch.Tensor) -> torch.Tensor:
         """Dense tier: every node's backbone output for each node-mask row,
         node-major ``[N, B, C]``."""
-        s, self_w = self._layer_terms(masks)
-        adj, scope = self.adj, self.scope
-        h = None
-        for li, layer in enumerate(self._layers()):
-            out = None
-            for ri, conv in layer:
-                hw = self.xw0[ri][:, None, :] if li == 0 else h[..., : conv.in_features] @ conv.weight.T
-                sr = s[ri][:, :, None]
-                t = sr * hw
-                t = sr * (adj[ri] @ t.flatten(1)).view(t.shape)
-                t += self_w[ri][:, :, None] * hw
-                if conv.bias is not None:
-                    t += conv.bias * scope[ri][:, None, None]
-                out = t if out is None else out.add_(t)
-            h = relu(out)
-        return h
+        s, self_w = dense_hetero_mask_scales(self.adj, self.scope, masks.float().t())
+        return dense_hetero_gcn_layers(self.adj, self.scope, s, self_w, self.xw0,
+                                       self.model.conv_layers)
 
     # ------------------------------------------------------------------
     # receptive-field plans

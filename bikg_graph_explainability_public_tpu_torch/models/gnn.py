@@ -203,6 +203,12 @@ def gin_node_model(
 Relation = Tuple[str, str, str]
 
 
+def takes_types(model_def) -> bool:
+    """Whether a model's forward also takes ``(node_type, edge_type)``:
+    a :class:`HeteroGNN`, or a model declaring ``typed = True``."""
+    return isinstance(model_def, HeteroGNN) or getattr(model_def, "typed", False)
+
+
 class HeteroGNN(nn.Module):
     """Per-relation convs over a typed homogeneous graph, summed per node
     (PyG ``HeteroConv`` with ``aggr='sum'``), then the FC head.

@@ -97,10 +97,12 @@ def extract_khop_subgraph(
         edge_mask=emask, node_type=nt, edge_type=new_et,
     )
     if host_only:
-        sub = Graph(**arrays, num_nodes=n_sub, num_edges=e_sub)
+        sub = Graph(**arrays, num_nodes=n_sub, num_edges=e_sub, typed=graph.typed)
         sub.host._cache.update(arrays)
     else:
-        sub = graph_from_numpy(graph.device, **arrays, num_nodes=n_sub, num_edges=e_sub)
+        sub = graph_from_numpy(
+            graph.device, **arrays, num_nodes=n_sub, num_edges=e_sub, typed=graph.typed
+        )
     return Subgraph(
         graph=sub,
         parent_nodes=parent_nodes,

@@ -97,16 +97,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    behind ``explain_many``; no hand kernel): the 36-node fixture in
    Shapley mode, community mode, an edge and a graph problem, each held
    against the CPU; then bench.py's workload (20k / 160k, GCN-128, 16
-   queries) in Shapley and community mode: explanations/s (best of 5
+   queries) in Shapley and community mode: explanations/s (best of 3
    after a warm-up), the size buckets, a phase split, the device's busy
    share in one traced call, peak memory, a launch-plan cache hit, and
-   every query held against the CPU.
+   every query held against the CPU;
+13. hetero ``explain_many`` through the public import (``px``; its array
+   form ``batch._explain_many``; no hand kernel): bench.py's hetero
+   workload (2 x 4000 nodes, 3 x 24,000 edges, a hetero GCN, 16 queries)
+   on the hetero_dense formulation in Shapley and community mode:
+   explanations/s, the phase split, the busy share, peak memory, stacks
+   and buckets; then the typed coo route (4 edge queries of (a, r1, b) and
+   a graph problem); every query held against the CPU (the graph problem
+   at a reduced budget); one ``px.Explainer`` call.
 
 The node path (4) also prints ``Explainer._explain``'s diagnostics (its
 phase split) for each 20k / 160k query.
 
 Every path runs with all launch counts set to 0 just before it and read
-just after.  The line before the last is ``{"kernels": [...]}``; the last
+just after; each prints the script's elapsed seconds when it is done.  The line before the last is ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
 checkout, the script exits with code 2 and prints no result.
 """
@@ -1022,7 +1030,7 @@ def phase_explain_many(dev, config) -> None:
     Shapley mode (queries 10, 3, 25, three repeats), community mode, one
     edge and one graph problem, each held against the same call on the CPU;
     then bench.py's workload in Shapley and community mode: one warm-up
-    call, the best of 5, explanations/s, the buckets, the phase split of
+    call, the best of 3, explanations/s, the buckets, the phase split of
     the first and of a later call (which must hit the launch-plan cache and
     give the last timed call's arrays bit for bit), the device's busy share
     in one traced call, peak memory, and every query of the first and of
@@ -1089,7 +1097,7 @@ def phase_explain_many(dev, config) -> None:
         first_wall = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats(dev)
         walls = []
-        for _ in range(5):
+        for _ in range(3):
             t0 = time.perf_counter()
             timed = call()
             walls.append(time.perf_counter() - t0)
@@ -1103,7 +1111,7 @@ def phase_explain_many(dev, config) -> None:
             (round_up_pow2(s.graph.num_nodes), max(round_up_pow2(s.graph.num_edges), 8))
             for s in (batch._subgraph_cached(g, q, 2) for q in queries)
         )
-        log(f"{label}: {EXPLAIN_Q / best:.2f} explanations/s (best of 5: {best:.4f} s; "
+        log(f"{label}: {EXPLAIN_Q / best:.2f} explanations/s (best of 3: {best:.4f} s; "
             f"all {', '.join(f'{w:.4f}' for w in walls)}); first call {first_wall:.3f} s; "
             f"peak {peak_gb:.3f} GB")
         log(f"{label}: buckets (n_pad, e_pad): queries "
@@ -1111,13 +1119,16 @@ def phase_explain_many(dev, config) -> None:
         for name, timer in (("first call", first_timer), ("later call (plan cache hit)", hot_timer)):
             log(f"{label} phases, {name} (device synchronised at each phase's exit): "
                 + ", ".join(f"{k} {v:.4f} s x{timer.counts[k]}" for k, v in timer.totals.items()))
+        t_prof = time.perf_counter()
         with device_trace(os.path.join(ROOT, "build", "traces")) as prof:
             t0 = time.perf_counter()
             call()
             traced_wall = time.perf_counter() - t0
         log(f"{label}: the traced call took {traced_wall * 1e3:.1f} ms; its device time "
             f"against the best unprofiled call's wall:")
-        log_device_profile(prof, best, label)
+        log_device_profile(prof, best, label, traced_wall)
+        log(f"{label}: the traced call, its trace file and its tables took "
+            f"{time.perf_counter() - t_prof:.2f} s of host time")
 
         cpu_model, _ = gcn_128x2(seed=0, device="cpu", n_conv=1)
         cpu_g = from_arrays(feat, ei, pad_mode="exact", device="cpu")
@@ -1135,18 +1146,22 @@ def phase_explain_many(dev, config) -> None:
 PROFILE_TOP = 12
 
 
-def log_device_profile(prof, wall_s: float, label: str) -> None:
+def log_device_profile(prof, wall_s: float, label: str, traced_wall_s=None) -> None:
     """Device time by operation from a finished ``torch.profiler`` run, and
     the device's busy share of ``wall_s``, the unprofiled wall time of the
-    same work (or the traced pass's own wall time)."""
+    same work (or the traced pass's own wall time); with ``traced_wall_s``,
+    also its share of the traced pass's own wall time."""
     from torch.autograd import DeviceType
 
+    # one aggregation of the events serves both tables: each call of
+    # key_averages() walks every event again
+    events = prof.key_averages()
     # device-side events only: the host ops that launched them carry the
     # same time again
     rows = sorted(
         (
             (e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
+            for e in events
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
         ),
         reverse=True,
@@ -1155,15 +1170,18 @@ def log_device_profile(prof, wall_s: float, label: str) -> None:
     if not rows:
         log(f"{label} profile: the profiler recorded no device time")
         return
+    traced = "" if traced_wall_s is None else (
+        f"; of the traced call's own {traced_wall_s * 1e3:.1f} ms wall, busy share "
+        f"{busy_ms / (traced_wall_s * 1e3):.3f}")
     log(f"{label} profile: device busy {busy_ms:.1f} ms of {wall_s * 1e3:.1f} ms wall "
-        f"(busy share {busy_ms / (wall_s * 1e3):.3f}); top operations by device time:")
+        f"(busy share {busy_ms / (wall_s * 1e3):.3f}){traced}; top operations by device time:")
     for ms, count, name in rows[:PROFILE_TOP]:
         short = name if len(name) <= 100 else f"{name[:45]} ... {name[-50:]}"
         log(f"  {ms:10.3f} ms  {count:6d} calls  {short}")
     host = sorted(
         (
             (e.self_cpu_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
+            for e in events
             if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0
         ),
         reverse=True,
@@ -2216,6 +2234,149 @@ def phase_hetero_explanations(dev, config) -> None:
             f"{len(runs['card'].names)} elements, max |card - cpu| {diff:.3e} ok")
 
 
+#: the graph problem's masks a forward step on the typed coo route (its
+#: per-edge messages, [chunk, 131072, 128] float32 a relation, stay near
+#: 3.4 GB), and the reduced budget its CPU hold runs at (in chunks of 10)
+HETERO_GRAPH_CHUNK = 50
+HETERO_GRAPH_HOLD = dict(interpret_samples=4, epochs=10)
+
+
+def phase_hetero_explain_many(dev) -> None:
+    """``explain_many`` for a hetero GCN through the public import (``px``;
+    its array form ``batch._explain_many``): bench.py's hetero workload
+    (bench.py:486-519: 2 x 4000 nodes, 3 x 24,000 edges, seed 9, conv
+    (128,), fc (128, 64), 16 queries of type a drawn after the graph) under
+    ``CFG_FULL`` on the hetero_dense formulation, in Shapley mode and in
+    community mode (32 communities a type, as the hetero node path builds
+    them): a warm call, a call timed with ``PhaseTimer``, the best of 3
+    untimed calls (explanations/s), a profiled call (its busy share against
+    its own wall and against the best untimed wall), peak memory, stacks and
+    buckets; then the typed coo route: 4 edge queries of (a, r1, b) and one
+    ``graph_prediction`` call.  Every query is held against the same call on
+    the CPU; the graph problem at a reduced budget (printed).  Each step
+    prints its seconds.  ``px.Explainer`` is called once through the public
+    import.  No hand kernel runs here."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import bikg_graph_explainability_public_tpu_torch as px
+    from bikg_graph_explainability_public_tpu_torch.explain import batch
+    from bikg_graph_explainability_public_tpu_torch.utils.padding import round_up_pow2
+    from bikg_graph_explainability_public_tpu_torch.utils.profiling import PhaseTimer
+
+    n_per, e_per, seed = HETERO_SMALL
+    feat, ei, rng = hetero_graph(n_per, e_per, seed)
+    queries = [int(q) for q in rng.integers(0, n_per, EXPLAIN_Q)]
+    edge_queries = [int(q) for q in rng.integers(0, e_per, 4)]  # relation (a, r1, b)
+    node_names = {t: [f"{t}{i}" for i in range(n_per)] for t in ("a", "b")}
+    flat_names, _ = px.hetero_names_to_homo(node_names)
+    perm = np.random.default_rng(7)
+    comms = {t: [[v[j] for j in perm.permutation(n_per)[i::32]] for i in range(32)]
+             for t, v in node_names.items()}
+    comm_names = {t: [f"{t}_community_{i}" for i in range(32)] for t in comms}
+    pathways, pathway_names, _ = px.Pathways(comms, comm_names).hetero2homo("node_prediction")
+    edge_names = [f"e{i}" for i in range(len(HETERO_RELS) * e_per)]
+    models, graphs = {}, {}
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        models[where] = hetero_model(["a", "b"], HETERO_RELS, HETERO_F, (HIDDEN,), (HIDDEN, 64),
+                                     seed, d)
+        graphs[where], _ = px.hetero_to_homo(feat, ei, device=d)
+    label0 = f"hetero explain_many {2 * n_per}/{3 * e_per} conv ({HIDDEN},)"
+
+    def call(where, qs, cfg=CFG_FULL, timer=None, **kw):
+        out = batch._explain_many(models[where], graphs[where], qs, cfg, timer=timer, **kw)
+        if where == "card":
+            torch.cuda.synchronize()
+        return out
+
+    n_hops = models["card"].model_def.num_hops + 1
+    buckets = Counter(
+        (round_up_pow2(s.graph.num_nodes), max(round_up_pow2(s.graph.num_edges), 8))
+        for s in (batch._subgraph_cached(graphs["card"], q, n_hops) for q in queries)
+    )
+    t_phase = time.perf_counter()
+    for mode, kw in (("shapley", dict(names=flat_names)),
+                     ("community", dict(names=flat_names, pathways=pathways,
+                                        pathway_names=pathway_names))):
+        label = f"{label0} {mode} Q={EXPLAIN_Q}"
+        t0 = time.perf_counter()
+        first = call("card", queries, **kw)
+        first_wall = time.perf_counter() - t0
+        timer = PhaseTimer()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        call("card", queries, timer=timer, **kw)
+        timed_wall = time.perf_counter() - t0
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            untimed = call("card", queries, **kw)
+            walls.append(time.perf_counter() - t0)
+            _identical(untimed, first, label)
+        wall = min(walls)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        t_prof = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call("card", queries, **kw)
+            traced_wall = time.perf_counter() - t0
+        log(f"{label}: {EXPLAIN_Q / wall:.2f} explanations/s (best of 3 untimed hot calls: "
+            f"{', '.join(f'{w:.4f}' for w in walls)} s); "
+            f"warm-up call {first_wall:.3f} s; the call under PhaseTimer {timed_wall:.4f} s "
+            f"({EXPLAIN_Q / timed_wall:.2f} explanations/s); peak {peak_gb:.3f} GB; "
+            f"{len(buckets)} stacks, buckets (n_pad, e_pad): queries "
+            + ", ".join(f"{k}: {v}" for k, v in sorted(buckets.items())))
+        log(f"{label} phases (device synchronised at each phase's exit): "
+            + ", ".join(f"{k} {v:.4f} s x{timer.counts[k]}" for k, v in timer.totals.items()))
+        log_device_profile(prof, wall, label, traced_wall)
+        log(f"{label}: the profiled call and its tables took "
+            f"{time.perf_counter() - t_prof:.2f} s of host time")
+        t0 = time.perf_counter()
+        cpu = call("cpu", queries, **kw)
+        diff = _hold_many(first, cpu, label)
+        log(f"{label}: all {EXPLAIN_Q} queries held against the CPU's call "
+            f"({time.perf_counter() - t0:.2f} s on the host), max |card - cpu| {diff:.3e} ok "
+            f"({time.perf_counter() - t_phase:.1f} s into the phase)")
+
+    # the typed coo route: edge queries of (a, r1, b), then the graph problem
+    label = f"{label0} typed coo edge_prediction (a, r1, b) Q=4"
+    kw = dict(names=edge_names, problem="edge_prediction")
+    call("card", edge_queries, **kw)
+    t0 = time.perf_counter()
+    got = call("card", edge_queries, **kw)
+    wall = time.perf_counter() - t0
+    diff = _hold_many(got, call("cpu", edge_queries, **kw), label)
+    log(f"{label}: hot call {wall:.4f} s ({4 / wall:.2f} explanations/s), "
+        f"{[len(x.names) for x in got]} elements, every query held against the CPU, "
+        f"max |card - cpu| {diff:.3e} ok ({time.perf_counter() - t_phase:.1f} s into the phase)")
+    label = f"{label0} typed coo graph_prediction"
+    kw = dict(names=flat_names, problem="graph_prediction", chunk=HETERO_GRAPH_CHUNK)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    got = call("card", [0], **kw)
+    wall = time.perf_counter() - t0
+    if len(got[0].names) != 2 * n_per or not np.isfinite(got[0].mean).all():
+        raise AssertionError(f"{label}: {len(got[0].names)} elements or scores not finite")
+    log(f"{label}: one call of CFG_FULL ({wall:.3f} s, chunk {HETERO_GRAPH_CHUNK}, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB), {len(got[0].names)} elements")
+    cfg = dict(CFG_FULL, **HETERO_GRAPH_HOLD)
+    kw["chunk"] = 10
+    diff = _hold_many(call("card", [0], cfg, **kw), call("cpu", [0], cfg, **kw), label)
+    log(f"{label}: held against the CPU at the reduced budget {HETERO_GRAPH_HOLD} in chunks "
+        f"of 10 (the full budget's CPU run is too slow for this script), max |card - cpu| "
+        f"{diff:.3e} ok ({time.perf_counter() - t_phase:.1f} s into the phase)")
+
+    # the public surface: px imports here without pandas, and its Explainer runs
+    ex = px.Explainer(feat, ei, models["card"], CFG_FULL, node_names, element_type="a",
+                      device=dev)._explain(f"a{queries[0]}")
+    if not np.isfinite(ex.mean).all():
+        raise AssertionError("px.Explainer: scores are not finite")
+    log(f"px.Explainer through the public import: a{queries[0]}, {len(ex.names)} elements ok")
+
+
 def scoped_kernel_timing(table, n_src, b, label) -> dict:
     """Kernels 2.3 and 2.4 on one relation's type-scoped table at the ELL
     tier's chunk width (``[n_src, b * 128]`` features, ``d1 - d0`` output
@@ -2441,8 +2602,13 @@ def main() -> int:
         config = json.load(f)
 
     t_start = time.perf_counter()
+
+    def done(label: str) -> None:
+        log(f"{label} done at {time.perf_counter() - t_start:.1f} s")
+
     card = phase_header()
     phase_build()
+    done("build")
     rec_23, graph, table = phase_kernel(dev)
     rec_24, rec_tr = phase_kernel_weighted(dev, table)
     rec_21, rec_22, rec_op = phase_kernel_dense(dev)
@@ -2451,7 +2617,7 @@ def main() -> int:
     rec_tr["launches"] = ladder_counts["batched_gather_sum.transpose"]
     del graph, table
     rec_29, rec_flag = phase_all_slots(dev, card)
-    log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
+    done("kernel checks")
 
     reset_counts()
     phase_explanations(dev, config, "node_prediction")
@@ -2459,21 +2625,31 @@ def main() -> int:
     reset_counts()
     phase_explanations(dev, config, "edge_prediction")
     expect_counts(read_counts(), {}, "edge path (dense tier, edge query plans)")
+    done("node and edge paths")
     rec_23["launches"] = phase_graph_path(dev, config, rec_23)
     rec_24["launches"] = phase_ell_edge_forward(dev)
     rec_21["launches"], rec_op["launches"], rec_22["launches"] = phase_dense_fused(dev)
+    done("graph path, ELL edge forward and fused dense forward")
     reset_counts()
     phase_model_families(dev, config)
     expect_counts(read_counts(), {}, "model families (generic forward, segment operations)")
+    done("model families")
     reset_counts()
     phase_hetero_explanations(dev, config)
     expect_counts(read_counts(), {}, "hetero node and edge paths (query plans)")
+    done("hetero node and edge paths")
     hetero_23, hetero_24 = phase_hetero_ell(dev, config, rec_23, rec_24)
     rec_23["launches"] += hetero_23
     rec_24["launches"] += hetero_24
+    done("hetero ELL tier")
     reset_counts()
     phase_explain_many(dev, config)
     expect_counts(read_counts(), {}, "explain_many (dense and coo formulations, plain torch)")
+    done("explain_many")
+    reset_counts()
+    phase_hetero_explain_many(dev)
+    expect_counts(read_counts(), {}, "hetero explain_many (hetero_dense and typed coo, plain torch)")
+    done("hetero explain_many")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     records = [rec_21, rec_op, rec_22, rec_23, rec_24, rec_tr] + ladder + [rec_29, rec_flag]

@@ -158,8 +158,9 @@ def test_stack_matches_jax(toy, problem):
         assert got.adjs is None
     for a, b in zip(got.parent_nodes + got.parent_edges, want.parent_nodes + want.parent_edges):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        tbatch._Stack(toy["tg"], seeds, 2, need_edges=True, rel_model=object())
+    # an untyped stack keeps no type ids and no per-relation stacks
+    assert got.ntype is None and got.etype is None
+    assert got.adjs_r is None and got.scopes is None
 
 
 @pytest.mark.parametrize("width", [37, 8, 1])
@@ -340,14 +341,10 @@ def test_in_place_mutation_of_cached_pathways_is_recomputed(toy):
     assert not after[0][1].equals(before[0][1])
 
 
-class _HeteroStandIn(GCNNodeModel):
-    """A model that declares relations, as a heterogeneous model does."""
-    relations = [("gene", "to", "disease")]
-
-
 def test_mesh_and_hetero_models_are_not_ported(toy):
+    """``mesh=`` needs ``parallel/``, which is not ported.  Hetero models
+    are served (``tests/test_torch_hetero_batch_explain.py``)."""
     with pytest.raises(NotImplementedError, match="parallel"):
         tbatch.explain_many(toy["tm"], toy["tg"], [10], toy["cfg"], mesh=object())
-    hetero = Model(_HeteroStandIn(84), load_params(CKPT), device="cpu")
-    with pytest.raises(NotImplementedError, match="hetero"):
-        tbatch.explain_many(hetero, toy["tg"], [10], toy["cfg"])
+    with pytest.raises(NotImplementedError, match="parallel"):
+        tbatch._explain_many(toy["tm"], toy["tg"], [10, 3], toy["cfg"], mesh=object())

@@ -265,9 +265,10 @@ def test_pathways_match_jax():
     comms = [["3", "1", "20"], ["5"], ["30", "31"], ["11", "0", "7", "2"]]
     jp = jpathways.Pathways(comms, ["a", "b", "c", "d"])
     tp = tpathways.Pathways(comms, ["a", "b", "c", "d"])
-    jsub, jnames, _ = jp.comp_graph(names)
-    tsub, tnames = tp.comp_graph(names)
+    jsub, jnames, jtypes = jp.comp_graph(names)
+    tsub, tnames, ttypes = tp.comp_graph(names)
     assert (tsub, tnames) == (jsub, jnames)
+    assert ttypes is None and jtypes is None
     inds = tpathways.Pathways(tsub, tnames).names2inds(names)
     assert inds == jpathways.Pathways(jsub, jnames).names2inds(names)
     vals = np.random.default_rng(0).standard_normal(12)

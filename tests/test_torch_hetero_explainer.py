@@ -206,10 +206,17 @@ def test_element_type_checks_and_cuda_default(setup):
 
 
 def test_explain_many_refuses_hetero_models(setup):
-    """``explain_many``'s hetero runners are the next slice's."""
+    """``explain_many`` takes the graph's type ids as positions in the
+    model's lists (it has no names to match), so it refuses a hetero model
+    on a graph with a node type the model lacks; the ``Explainer`` matches
+    by name and refuses the same pair."""
     feat, ei, _, params = setup
     from bikg_graph_explainability_public_tpu_torch.graph import hetero_to_homo
 
-    graph, _ = hetero_to_homo(feat, ei, device="cpu")
-    with pytest.raises(NotImplementedError, match="hetero"):
+    extra = dict(feat, c=np.zeros((3, F), np.float32))
+    graph, _ = hetero_to_homo(extra, ei, device="cpu")
+    with pytest.raises(ValueError, match="node type ids"):
         explain_many(_port_model(params), graph, [3], CFG)
+    with pytest.raises(ValueError, match="node types"):
+        Explainer(extra, ei, _port_model(params), CFG, dict(NODE_NAMES, c=["x", "y", "z"]),
+                  element_type="a", device="cpu").run("5")
