@@ -8,9 +8,7 @@ Values / KernelSHAP), as the reference ``pathway_explanations`` library
 does.  Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 
-The public surface is the JAX package's, minus what is not ported yet
-(``RGCNNodeModel``, ``RGCNConv``, ``hetero_sage_for_relations``,
-``hetero_gat_for_relations``).  Importing the package builds no kernel and
+The public surface is the JAX package's ``__all__``.  Importing the package builds no kernel and
 imports no pandas: kernels build at their first CUDA use, and pandas is
 imported where a DataFrame is made.
 """
@@ -35,11 +33,14 @@ from .models.gnn import (
     ConvStackNodeModel,
     GCNNodeModel,
     HeteroGNN,
+    RGCNNodeModel,
     gat_node_model,
     gatv2_node_model,
     gin_node_model,
     graph_conv_node_model,
     hetero_gcn_for_relations,
+    hetero_gat_for_relations,
+    hetero_sage_for_relations,
     sage_node_model,
 )
 from .models.layers import (
@@ -49,6 +50,7 @@ from .models.layers import (
     GINConv,
     GraphConv,
     Linear,
+    RGCNConv,
     SAGEConv,
 )
 from .compat import Data, Kernel, Mask, LinearRegression
@@ -87,11 +89,15 @@ __all__ = [
     "graph_conv_node_model",
     "sage_node_model",
     "hetero_gcn_for_relations",
+    "hetero_gat_for_relations",
+    "hetero_sage_for_relations",
+    "RGCNNodeModel",
     "GCNConv",
     "GATConv",
     "GATv2Conv",
     "GINConv",
     "GraphConv",
+    "RGCNConv",
     "SAGEConv",
     "Linear",
     "Data",

@@ -106,9 +106,9 @@ def _load_graph(path: str) -> GraphFile:
 
 
 def _load_model(checkpoint: str, device):
-    """A Model from a torch checkpoint (homogeneous stacks and
-    HeteroConv-of-GCNConv, as :func:`.models.torch_import.import_any` reads
-    them), on ``device``."""
+    """A Model from a torch checkpoint (homogeneous stacks, RGCN and
+    HeteroConv stacks of GCN, SAGE or GAT convs, as
+    :func:`.models.torch_import.import_any` reads them), on ``device``."""
     from .models.adapter import Model
     from .models.torch_import import import_any, load_state_dict
 

@@ -18,7 +18,8 @@ Three forward formulations, chosen per (model, problem):
   ``[Q, R, n, n]`` adjacencies, each relation's self-loops and bias on its
   destination type only (PyG ``HeteroConv`` with ``aggr='sum'``).
 * **coo**: everything else (edge and graph problems, hetero models with
-  other convs, the other model families): the stacked subgraphs stay in
+  other convs, such as the hetero SAGE and GAT stacks, the other model
+  families): the stacked subgraphs stay in
   COO form and the model's own forward runs with per-sample edge weights,
   the Q subgraphs side by side as one block-diagonal graph, with their node
   and edge types where the model is typed.
@@ -43,7 +44,9 @@ fold_in(PRNGKey(seed), repeat), original query position)``, then
 surrogate's initialisation.  So the same seed gives the JAX package's
 ``explain_many`` scores.
 
-Not ported: ``mesh=`` (raises ``NotImplementedError``).
+Not ported: ``mesh=`` (raises ``NotImplementedError``).  A typed model
+that is not a HeteroGNN (:class:`..models.gnn.RGCNNodeModel`) raises
+``TypeError``, as the JAX package's ``explain_many`` does.
 """
 
 from __future__ import annotations
@@ -595,14 +598,23 @@ def _run_stack(kind: str, model_def, problem: str, entry: dict, t: int,
 
 
 def _check_inputs(model, graph: Graph, mesh) -> None:
-    """Refuse ``mesh=`` (not ported), and a hetero graph whose type ids
-    name no type of the model (ids are positions in the model's
-    ``node_type_names`` and ``relations``)."""
+    """Refuse ``mesh=`` (not ported), a typed model that is not a
+    :class:`..models.gnn.HeteroGNN` (the JAX package's coo runner calls
+    such a model without its type vectors, so its ``explain_many`` raises
+    ``TypeError`` there; this adds no feature the JAX package lacks), and
+    a hetero graph whose type ids name no type of the model (ids are
+    positions in the model's ``node_type_names`` and ``relations``)."""
     if mesh is not None:
         raise NotImplementedError(
             "explain_many(mesh=...) needs parallel/, which is not ported yet"
         )
     mdef = model.model_def
+    if model._typed and not isinstance(mdef, HeteroGNN):
+        raise TypeError(
+            f"explain_many does not serve {type(mdef).__name__}: of the typed models it "
+            "serves only HeteroGNN, as the JAX package's explain_many, which calls any "
+            "other model without node and edge types; explain it with Explainer.run"
+        )
     if not isinstance(mdef, HeteroGNN):
         return
     hv = host_view(graph)

@@ -31,9 +31,12 @@ class Model:
     (:class:`.gnn.ConvStackNodeModel`: the GAT, GATv2, SAGE, GraphConv and
     GIN stacks, which have no fast engine in the JAX package either).
     A :class:`.gnn.HeteroGNN` of GCNConvs runs on
-    :class:`.fast_hetero.FastBatchedHeteroGCN` when ``fast``; what that
-    engine declines (it returns None), and any other typed model, runs the
-    generic forward with the graph's type vectors.
+    :class:`.fast_hetero.FastBatchedHeteroGCN` when ``fast``, one of
+    GATConvs without self-loops (its node problems) on
+    :class:`.fast_hetero.FastBatchedHeteroGAT`; what the engine declines
+    (it returns None), any other HeteroGNN (of SAGEConvs, say) and any
+    other typed model (:class:`.gnn.RGCNNodeModel`) run the generic
+    forward with the graph's type vectors.
     """
 
     def __init__(
@@ -103,8 +106,9 @@ class Model:
         if self.fast and isinstance(self.model_def, HeteroGNN):
             engine = self._fast_hetero_engine(graph)
             if engine is not None:
-                # the engine declines what it cannot serve: unrestricted
-                # edge problems up to its DENSE_CAP, or beyond its budget
+                # the engine declines what it cannot serve: the GCN engine
+                # unrestricted edge problems up to its DENSE_CAP, or beyond
+                # its budget; the GAT engine edge and graph problems
                 out = engine.query_outputs(masks, query, problem, chunk_size)
                 if out is not None:
                     return out
@@ -146,16 +150,19 @@ class Model:
         return engine
 
     def _fast_hetero_engine(self, graph: Graph):
-        """The hetero engine for ``graph`` (cached), or None where the
-        model's convs are not all GCNConvs (the JAX package's hetero GAT
-        engine is not ported: such models run the generic forward)."""
-        from .fast_hetero import FastBatchedHeteroGCN
+        """The hetero engine for ``graph`` (cached): the GCN engine, else
+        the GAT engine, else None (the generic forward), as the JAX
+        package picks them."""
+        from .fast_hetero import FastBatchedHeteroGAT, FastBatchedHeteroGCN
 
         if self._fast_cache[0] is graph:
             return self._fast_cache[1]
-        try:
-            engine = FastBatchedHeteroGCN(self.model_def, graph, device=self.device)
-        except TypeError:
-            engine = None
+        engine = None
+        for cls in (FastBatchedHeteroGCN, FastBatchedHeteroGAT):
+            try:
+                engine = cls(self.model_def, graph, device=self.device)
+                break
+            except TypeError:
+                pass
         self._fast_cache = (graph, engine)
         return engine

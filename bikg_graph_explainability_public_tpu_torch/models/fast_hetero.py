@@ -1,8 +1,11 @@
-"""Batched masked forwards of a heterogeneous GCN (a :class:`.gnn.HeteroGNN`
-whose convs are all GCNConvs, the reference's trained hetero checkpoint).
+"""Batched masked forwards of heterogeneous models: a :class:`.gnn.HeteroGNN`
+whose convs are all GCNConvs (the reference's trained hetero checkpoint,
+:class:`FastBatchedHeteroGCN`), or all GATConvs without self-loops (the
+reference hetero test model, :class:`FastBatchedHeteroGAT`, node problems
+on receptive-field plans only, as in the JAX package).
 
-Each relation ``r`` has its own masked degree, with self-loops only on its
-destination type (``scope_r``, PyG ``HeteroConv`` semantics), and a layer's
+In the GCN engine each relation ``r`` has its own masked degree, with
+self-loops only on its destination type (``scope_r``, PyG ``HeteroConv`` semantics), and a layer's
 output is the sum over relations.  Three tiers, as in the JAX package's
 ``models/fast_hetero.py``:
 
@@ -34,6 +37,7 @@ contiguous) every relation runs on the full row range.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -45,7 +49,7 @@ from ..ops.spmm import gather_sum_batched_separable, weighted_gather_sum_batched
 from ..utils.device import resolve_device
 from .fast_gcn import _PLAN_DEG_ENTRY_CAP, _ball_geometry, _chunks, _pad16
 from .gnn import HeteroGNN
-from .layers import GCNConv, relu
+from .layers import GATConv, GCNConv, relu
 
 
 class HeteroQueryPlan(NamedTuple):
@@ -54,7 +58,8 @@ class HeteroQueryPlan(NamedTuple):
     with per-relation adjacency slices on a leading R axis.
 
     vp:       [Ps] node ids, distance-ordered (query first)
-    a_deg:    [R, Ps, N_pad] adjacency rows at vp (no self-loops)
+    a_deg:    [R, Ps, N_pad] adjacency rows at vp (no self-loops; empty
+              for the GAT engine)
     a_layers: [R, P_0, Ps] for the first layer, then [R, P_i, P_{i-1}]
     p_sizes:  (P_0, ..., P_{L-1}) padded prefix lengths
     scope_v:  [R, Ps] each relation's destination-type scope at vp
@@ -177,6 +182,33 @@ def dense_hetero_gcn_layers(adj_r, scope, s, self_w, xw0, conv_layers) -> torch.
     return h
 
 
+def _relation_scopes(model_def: HeteroGNN, graph) -> np.ndarray:
+    """``[R, N]`` float32: 1 on the valid nodes of each relation's
+    destination type."""
+    hv = host_view(graph)
+    names = model_def.node_type_names
+    return np.stack(
+        [(hv.node_type == names.index(rel[-1])) & hv.node_mask for rel in model_def.relations]
+    ).astype(np.float32)
+
+
+def _ball_slices(et, rcv_pos, snd_pos, keep, p_s: int, p_sizes, nrel: int) -> List[np.ndarray]:
+    """Per layer ``i``, the multiplicities ``[R, P_i, P_{i-1}]`` (``P_{-1}
+    = p_s``) of the edges ``keep`` whose receiver lies in the layer's
+    output prefix and whose sender in its input prefix, one slice a
+    relation."""
+    out, prev = [], p_s
+    for p in p_sizes:
+        a_i = np.zeros((nrel, p, prev), np.float32)
+        for ri in range(nrel):
+            sel = (keep & (et == ri) & (rcv_pos >= 0) & (rcv_pos < p)
+                   & (snd_pos >= 0) & (snd_pos < prev))
+            np.add.at(a_i[ri], (rcv_pos[sel], snd_pos[sel]), 1.0)
+        out.append(a_i)
+        prev = p
+    return out
+
+
 def is_hetero_gcn(model_def) -> bool:
     """Whether ``model_def`` is a :class:`.gnn.HeteroGNN` whose convs are
     all default GCNConvs (normalised, with self-loops, not ``improved``):
@@ -217,14 +249,9 @@ class FastBatchedHeteroGCN:
         self._edge_plans: dict = {}
         self._adj: Optional[torch.Tensor] = None
         self._ell: Optional[EllTier] = None
-        hv = host_view(graph)
-        names = model_def.node_type_names
-        rels = model_def.relations
-        scopes = np.stack(
-            [(hv.node_type == names.index(rel[-1])) & hv.node_mask for rel in rels]
-        ).astype(np.float32)
-        self.scope = torch.from_numpy(scopes).to(self.device)  # [R, N]
+        self.scope = torch.from_numpy(_relation_scopes(model_def, graph)).to(self.device)  # [R, N]
         # the first layer's transformed features per relation, on the host
+        hv = host_view(graph)
         xw0 = [
             hv.x[:, : conv.in_features] @ conv.weight.detach().cpu().numpy().T
             for conv in model_def.conv_layers[0].values()
@@ -289,19 +316,11 @@ class FastBatchedHeteroGCN:
             for ri in range(nrel):
                 keep = keep_ns & (et == ri) & (rcv_pos >= 0)
                 np.add.at(a_deg[ri], (rcv_pos[keep], snd[keep]), 1.0)
-            a_layers, prev = [], p_s
-            for p in p_sizes:
-                a_i = np.zeros((nrel, p, prev), np.float32)
-                for ri in range(nrel):
-                    sel = (keep_ns & (et == ri) & (rcv_pos >= 0) & (rcv_pos < p)
-                           & (snd_pos >= 0) & (snd_pos < prev))
-                    np.add.at(a_i[ri], (rcv_pos[sel], snd_pos[sel]), 1.0)
-                a_layers.append(self._t(a_i))
-                prev = p
+            a_layers = _ball_slices(et, rcv_pos, snd_pos, keep_ns, p_s, p_sizes, nrel)
             vp_t = self._t(vp)
             plan = HeteroQueryPlan(
-                vp=vp_t, a_deg=self._t(a_deg), a_layers=tuple(a_layers), p_sizes=p_sizes,
-                scope_v=self.scope[:, vp_t],
+                vp=vp_t, a_deg=self._t(a_deg), a_layers=tuple(self._t(a) for a in a_layers),
+                p_sizes=p_sizes, scope_v=self.scope[:, vp_t],
             )
         self._plans[q] = plan
         return plan
@@ -664,3 +683,117 @@ class FastBatchedHeteroGCN:
 
         chunk = self._ELL_CHUNK if ell else chunk_size
         return torch.cat([run_chunk(c) for c in _chunks(masks, chunk)])
+
+
+class FastBatchedHeteroGAT:
+    """Batched masked forwards of a :class:`.gnn.HeteroGNN` whose convs are
+    all :class:`.layers.GATConv` without self-loops (the reference hetero
+    *test* model): node problems, on receptive-field plans.
+
+    Per relation and layer, attention is a softmax over each destination's
+    present in-edges.  On the query's ball the logits are a small ``[B,
+    P_i, P_{i-1}, H]`` tensor; parallel edges share one logit, so their
+    multiplicity enters as ``log A`` on it, and a mask enters only as the
+    presence of both ends (no gathers, no segment operations).  Layer 0's
+    input is the ball's features, shared by every mask (``[1, P_s, F]``);
+    activations are batch-major ``[B, P, C]``, the layout the batched
+    products take.  Edge and graph problems, and ``restrict=False``, get
+    None from :meth:`query_outputs` (the adapter then runs the generic
+    forward), as from the JAX engine.  ``device=None`` means the CUDA
+    card; the graph must live there.  Raises ``TypeError`` for any other
+    model.
+    """
+
+    def __init__(self, model_def: HeteroGNN, graph, restrict: bool = True, device=None):
+        if not isinstance(model_def, HeteroGNN) or not all(
+            isinstance(c, GATConv) for layer in model_def.conv_layers for c in layer.values()
+        ):
+            raise TypeError("the fast hetero GAT engine needs a HeteroGNN of GATConvs")
+        if any(c.add_self_loops for layer in model_def.conv_layers for c in layer.values()):
+            raise TypeError("the fast hetero GAT engine does not serve add_self_loops GATConvs")
+        self.device = resolve_device(device)
+        if graph.device != self.device:
+            raise ValueError(f"graph is on {graph.device}, engine on {self.device}")
+        self.model = model_def.to(self.device)
+        self.graph = graph
+        self.restrict = restrict
+        self._plans: dict = {}
+        self.scope = torch.from_numpy(_relation_scopes(model_def, graph)).to(self.device)  # [R, N]
+
+    def query_plan(self, query: int) -> HeteroQueryPlan:
+        """Receptive-field plan for node query ``query`` (cached): per layer
+        and relation the edge multiplicities ``[R, P_i, P_{i-1}]`` inside
+        the ball.  Data self-loops stay: they are real edges for GAT.
+        ``a_deg`` is empty (no degrees here)."""
+        q = int(query)
+        if q in self._plans:
+            return self._plans[q]
+        g = self.graph
+        et = host_view(g).edge_type[: g.num_edges]
+        snd, rcv, vp, pos, p_s, p_sizes = _ball_geometry(g, q, self.model.num_hops)
+        nrel = len(self.model.relations)
+        a_layers = _ball_slices(et, pos[rcv], pos[snd], np.ones(len(rcv), bool), p_s, p_sizes, nrel)
+        vp_t = torch.from_numpy(vp).to(self.device)
+        plan = HeteroQueryPlan(
+            vp=vp_t, a_deg=torch.zeros((nrel, 0, 0), device=self.device),
+            a_layers=tuple(torch.from_numpy(a).to(self.device) for a in a_layers),
+            p_sizes=p_sizes, scope_v=self.scope[:, vp_t],
+        )
+        self._plans[q] = plan
+        return plan
+
+    def _restricted_outputs(self, masks: torch.Tensor, plan: HeteroQueryPlan) -> torch.Tensor:
+        """Node-masked forward on the query's ball only: ``[B]`` query
+        predictions, the same as the full forward's."""
+        live = masks[:, plan.vp] > 0  # [B, Ps]
+        h = self.graph.x[plan.vp][None]  # [1, Ps, F]: layer 0's input, shared
+        prev = plan.vp.shape[0]
+        for li, layer in enumerate(self.model.conv_layers):
+            ni = plan.p_sizes[li]
+            out = None
+            for ri, conv in enumerate(layer.values()):
+                hc = (conv.heads, conv.out_features)
+                xs = conv.lin_src(h[..., : conv.in_src]).unflatten(-1, hc)  # [b, prev, H, C]
+                xd = conv.lin_dst(h[:, :ni, : conv.in_dst]).unflatten(-1, hc)  # [b, ni, H, C]
+                a_src = (xs * conv.att_src).sum(-1)  # [b, prev, H]
+                a_dst = (xd * conv.att_dst).sum(-1)  # [b, ni, H]
+                z = torch.nn.functional.leaky_relu(
+                    a_src[:, None, :, :] + a_dst[:, :, None, :], conv.negative_slope
+                )  # [b, ni, prev, H]
+                adj = plan.a_layers[li][ri]  # [ni, prev]
+                z = z + torch.where(adj > 0, torch.log(torch.clamp(adj, min=1e-30)), 0.0)[..., None]
+                pres = ((adj > 0)[None, :, :, None] & live[:, None, :prev, None]
+                        & live[:, :ni, None, None])  # [B, ni, prev, 1]
+                z = torch.where(pres, z, -math.inf)
+                zmax = z.amax(2, keepdim=True)
+                zmax = torch.where(torch.isfinite(zmax), zmax, 0.0)
+                e = torch.where(pres, torch.exp(z - zmax), 0.0)
+                alpha = e / torch.clamp(e.sum(2, keepdim=True), min=1e-30)  # [B, ni, prev, H]
+                # [B, H, ni, prev] @ [b, H, prev, C]: layer 0's b = 1 broadcasts
+                msg = (alpha.permute(0, 3, 1, 2) @ xs.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+                contrib = msg.flatten(-2) if conv.concat else msg.mean(-2)
+                if conv.bias is not None:
+                    contrib = contrib + conv.bias * plan.scope_v[ri][None, :ni, None]
+                out = contrib if out is None else out + contrib
+            h = relu(out)
+            prev = ni
+        return self.model.head(h[:, 0, :])[:, 0]
+
+    @torch.no_grad()
+    def query_outputs(
+        self,
+        masks: torch.Tensor,
+        query: Optional[int],
+        problem: str = "node_prediction",
+        chunk_size: int = 128,
+    ) -> Optional[torch.Tensor]:
+        """``[M]`` predictions of node ``query`` for bool node masks ``[M,
+        N_pad]``, in chunks of ``chunk_size`` (the last may be shorter), or
+        None for what the engine does not serve: edge and graph problems,
+        a query that is not a concrete index, ``restrict=False``."""
+        if ("edge" in problem or "graph" in problem or not self.restrict
+                or not isinstance(query, (int, np.integer))):
+            return None
+        masks = torch.as_tensor(masks, device=self.device)
+        plan = self.query_plan(int(query))
+        return torch.cat([self._restricted_outputs(c, plan) for c in _chunks(masks, chunk_size)])

@@ -1,4 +1,4 @@
-"""Homogeneous node models: a conv stack plus a fully-connected head.
+"""Node models: a conv stack plus a fully-connected head.
 
 :class:`ConvStackNodeModel` is the generic model (any layers with a
 ``(x, senders, receivers, edge_weight)`` forward); :class:`GCNNodeModel` is
@@ -6,9 +6,12 @@ the GCN stack of the reference homo test model ``GCN_homo``
 (``tests/test_utils.py:10-83``), which the fused engine serves; the
 factories build the GAT, GATv2, SAGE, GraphConv and GIN stacks.
 :class:`HeteroGNN` is the per-relation stack of PyG's ``HeteroConv`` over a
-typed homogeneous graph.  Parameter names are those of the JAX package's
-parameter trees (``conv.0.weight``, ``conv.0.lin_src.weight``,
-``conv.0.a__r1__b.weight``, ``fc.0.bias``, ...), so a JAX tree loads with
+typed homogeneous graph (of GCN, SAGE or GAT convs, built by the
+``hetero_*_for_relations`` factories); :class:`RGCNNodeModel` is PyG's
+``RGCNConv`` stack, one conv a layer for every relation.  Parameter names
+are those of the JAX package's parameter trees (``conv.0.weight``,
+``conv.0.lin_src.weight``, ``conv.0.a__r1__b.weight``, ``conv.0.root``,
+``fc.0.bias``, ...), so a JAX tree loads with
 :func:`.checkpoint.params_from_numpy`.
 """
 
@@ -26,10 +29,25 @@ from .layers import (
     GINConv,
     GraphConv,
     Linear,
+    RGCNConv,
     SAGEConv,
     relu,
     sigmoid,
 )
+
+
+def _fc_stack(fc_channels, out_features, generator) -> nn.ModuleList:
+    """The FC head's layers: ``fc_channels`` widths, then ``out_features``."""
+    dims = tuple(fc_channels) + (out_features,)
+    return nn.ModuleList(Linear(a, b, generator=generator) for a, b in zip(dims[:-1], dims[1:]))
+
+
+def _run_head(fc: nn.ModuleList, final_activation: Callable, x: torch.Tensor) -> torch.Tensor:
+    """Linear+ReLU layers, the last one followed by ``final_activation``."""
+    for i, lin in enumerate(fc):
+        x = lin(x)
+        x = final_activation(x) if i == len(fc) - 1 else relu(x)
+    return x
 
 
 class ConvStackNodeModel(nn.Module):
@@ -54,10 +72,7 @@ class ConvStackNodeModel(nn.Module):
         self.out_features = out_features
         self.final_activation = final_activation
         self.conv = nn.ModuleList(convs)
-        fdims = self.fc_channels + (out_features,)
-        self.fc = nn.ModuleList(
-            Linear(a, b, generator=generator) for a, b in zip(fdims[:-1], fdims[1:])
-        )
+        self.fc = _fc_stack(self.fc_channels, out_features, generator)
 
     @property
     def num_hops(self) -> int:
@@ -72,11 +87,7 @@ class ConvStackNodeModel(nn.Module):
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """FC head + final activation on [..., C] representations."""
-        n = len(self.fc)
-        for i, fc in enumerate(self.fc):
-            x = fc(x)
-            x = self.final_activation(x) if i == n - 1 else relu(x)
-        return x
+        return _run_head(self.fc, self.final_activation, x)
 
     def forward(self, x, senders, receivers, edge_weight) -> torch.Tensor:
         """Full per-node output (black-box semantics)."""
@@ -217,7 +228,7 @@ class HeteroGNN(nn.Module):
     relation ``ri`` of a layer is its dict's ``ri``-th key, and edges of
     type ``ri`` feed it.  Node type ``i`` is ``node_type_names[i]``: a
     relation's conv puts its self-loops and bias only on its destination
-    type's nodes (``dst_scope``).  The modules live in ``conv``, an
+    type's nodes (``dst_scope``; a SAGEConv its whole output).  The modules live in ``conv``, an
     ``nn.ModuleList`` of ``nn.ModuleDict``s keyed ``"src__rel__dst"``, so
     the JAX tree ``{"conv": [{"a__r1__b": {...}}], "fc": [...]}`` loads as
     it is.  ``head_node_type`` is kept for the reference's signature; the
@@ -246,10 +257,7 @@ class HeteroGNN(nn.Module):
         self.out_features = out_features
         self.head_node_type = head_node_type
         self.final_activation = final_activation
-        fdims = self.fc_channels + (out_features,)
-        self.fc = nn.ModuleList(
-            Linear(a, b, generator=generator) for a, b in zip(fdims[:-1], fdims[1:])
-        )
+        self.fc = _fc_stack(self.fc_channels, out_features, generator)
 
     @property
     def conv_layers(self) -> List[Dict[Relation, nn.Module]]:
@@ -284,11 +292,7 @@ class HeteroGNN(nn.Module):
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """FC head + final activation on [..., C] representations."""
-        n = len(self.fc)
-        for i, fc in enumerate(self.fc):
-            x = fc(x)
-            x = self.final_activation(x) if i == n - 1 else relu(x)
-        return x
+        return _run_head(self.fc, self.final_activation, x)
 
     def forward(self, x, senders, receivers, edge_weight, node_type, edge_type) -> torch.Tensor:
         """Full per-node output on the homogenised graph."""
@@ -312,3 +316,101 @@ def hetero_gcn_for_relations(
         layers.append({tuple(r): GCNConv(prev, c, generator=generator) for r in relations})
         prev = c
     return HeteroGNN(node_type_names, layers, fc_channels, out_features, generator=generator)
+
+
+def hetero_sage_for_relations(
+    node_type_names: Sequence[str],
+    relations: Sequence[Relation],
+    in_features: int,
+    conv_channels: Sequence[int] = (16,),
+    fc_channels: Sequence[int] = (16, 16, 32),
+    out_features: int = 1,
+    generator: Optional[torch.Generator] = None,
+) -> HeteroGNN:
+    """A :class:`HeteroGNN` of per-relation SAGEConvs (PyG ``to_hetero`` of
+    a GraphSAGE stack: each relation's mean aggregate and root transform
+    land on its destination type only, summed over relations)."""
+    layers, prev = [], in_features
+    for c in conv_channels:
+        layers.append({tuple(r): SAGEConv(prev, c, generator=generator) for r in relations})
+        prev = c
+    return HeteroGNN(node_type_names, layers, fc_channels, out_features, generator=generator)
+
+
+def hetero_gat_for_relations(
+    node_type_names: Sequence[str],
+    relations: Sequence[Relation],
+    in_features: int,
+    conv_channels: Sequence[int] = (2,),
+    fc_channels: Sequence[int] = (2, 2, 4),
+    out_features: int = 1,
+    generator: Optional[torch.Generator] = None,
+) -> HeteroGNN:
+    """A :class:`HeteroGNN` of per-relation GATConvs: the reference hetero
+    *test* model (``tests/test_utils.py:86-182``: ``GATConv((-1, -1), C,
+    add_self_loops=False)``, ``aggr='sum'``), which
+    :class:`.fast_hetero.FastBatchedHeteroGAT` serves."""
+    layers, prev = [], in_features
+    for c in conv_channels:
+        layers.append({
+            tuple(r): GATConv((prev, prev), c, add_self_loops=False, generator=generator)
+            for r in relations
+        })
+        prev = c
+    return HeteroGNN(node_type_names, layers, fc_channels, out_features, generator=generator)
+
+
+class RGCNNodeModel(nn.Module):
+    """Relational-GCN stack + FC head over a typed homogeneous graph: PyG's
+    ``RGCNConv`` usage, one conv a layer taking every relation through its
+    ``[R, in, out]`` weight (or bases).  ``typed = True``: the adapter
+    passes ``(node_type, edge_type)``, and edges of type ``r`` feed
+    relation ``r``.  The modules live in ``conv`` and ``fc``, so the JAX
+    tree ``{"conv": [...], "fc": [...]}`` loads as it is.
+    """
+
+    typed = True
+
+    def __init__(
+        self,
+        in_features: int,
+        num_relations: int,
+        conv_channels: Sequence[int] = (16,),
+        num_bases: Optional[int] = None,
+        fc_channels: Sequence[int] = (16, 16, 32),
+        out_features: int = 1,
+        final_activation: Callable = sigmoid,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.in_features = in_features
+        self.num_relations = num_relations
+        self.fc_channels = tuple(fc_channels)
+        self.out_features = out_features
+        self.final_activation = final_activation
+        dims = (in_features,) + tuple(conv_channels)
+        self.conv = nn.ModuleList(
+            RGCNConv(a, b, num_relations, num_bases, generator=generator)
+            for a, b in zip(dims[:-1], dims[1:])
+        )
+        self.fc = _fc_stack(self.fc_channels, out_features, generator)
+
+    @property
+    def num_hops(self) -> int:
+        """Receptive-field depth = number of conv layers."""
+        return len(self.conv)
+
+    def backbone(self, x, senders, receivers, edge_weight, node_type, edge_type) -> torch.Tensor:
+        """The relational convs, each followed by a ReLU.  ``edge_weight``
+        may carry leading batch axes."""
+        for conv in self.conv:
+            x = relu(conv(x, senders, receivers, edge_weight, edge_type))
+        return x
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """FC head + final activation on [..., C] representations."""
+        return _run_head(self.fc, self.final_activation, x)
+
+    def forward(self, x, senders, receivers, edge_weight, node_type, edge_type) -> torch.Tensor:
+        """Full per-node output on the typed graph."""
+        return self.head(self.backbone(x, senders, receivers, edge_weight, node_type, edge_type))

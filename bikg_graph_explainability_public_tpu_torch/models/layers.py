@@ -9,6 +9,13 @@ features ``[N, F]`` or ``[..., N, F]``): a batch of perturbed graphs is one
 call.  Aggregation is plain PyTorch (``index_add_`` / ``scatter_reduce_``),
 as the JAX layers use segment operations and no Pallas kernel.
 
+``dst_scope`` (``[N]``, 1 on the nodes of a relation's destination type)
+is what :class:`.gnn.HeteroGNN` passes each relation's conv: GCNConv puts
+its self-loops and bias only there, GATConv and GATv2Conv their bias, and
+SAGEConv its whole output (root term and bias included), as PyG's
+``to_hetero`` writes a relation's SAGE output to destination rows only.
+GraphConv and GINConv take no ``dst_scope``.
+
 Initialisation draws from ``generator`` (a ``torch.Generator``; ``None``
 means torch's default one); it does not reproduce JAX's draw, since
 weights are carried across with :func:`.checkpoint.params_from_numpy`.
@@ -123,13 +130,18 @@ class GCNConv(nn.Module):
             norm_e = edge_weight.to(xw.dtype)
             self_w = xw.new_zeros(norm_e.shape[:-1] + (num_nodes,))
         out = weighted_gather_sum(norm_e, xw, senders, receivers, num_nodes)
-        out = out + self_w[..., None] * xw
-        if self.bias is not None:
-            if dst_scope is not None:
-                out = out + self.bias * dst_scope.to(out.dtype)[:, None]
-            else:
-                out = out + self.bias
+        return _add_bias(out + self_w[..., None] * xw, self.bias, dst_scope)
+
+
+def _add_bias(out: torch.Tensor, bias: Optional[torch.Tensor],
+              dst_scope: Optional[torch.Tensor]) -> torch.Tensor:
+    """``out + bias``, the bias only on the rows of ``dst_scope`` where one
+    is given."""
+    if bias is None:
         return out
+    if dst_scope is None:
+        return out + bias
+    return out + bias * dst_scope.to(out.dtype)[:, None]
 
 
 def _segment(fn, data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -185,9 +197,9 @@ class _AttentionConv(nn.Module):
         width = heads * out_features if concat else out_features
         self.bias = nn.Parameter(torch.zeros(width)) if bias else None
 
-    def _finish(self, out: torch.Tensor) -> torch.Tensor:
+    def _finish(self, out: torch.Tensor, dst_scope: Optional[torch.Tensor]) -> torch.Tensor:
         out = out.flatten(-2) if self.concat else out.mean(-2)
-        return out if self.bias is None else out + self.bias
+        return _add_bias(out, self.bias, dst_scope)
 
 
 class GATConv(_AttentionConv):
@@ -220,11 +232,14 @@ class GATConv(_AttentionConv):
         self.att_src = _glorot((1, heads, out_features), generator)
         self.att_dst = _glorot((1, heads, out_features), generator)
 
-    def forward(self, x, senders, receivers, edge_weight) -> torch.Tensor:
-        """Masked attention convolution, [..., N, H*C] or [..., N, C]."""
+    def forward(self, x, senders, receivers, edge_weight, *,
+                dst_scope: Optional[torch.Tensor] = None,
+                x_dst: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Masked attention convolution, [..., N, H*C] or [..., N, C].
+        ``x_dst`` (default ``x``) feeds the destination projection."""
         hc = (self.heads, self.out_features)
         xs = self.lin_src(x[..., : self.in_src]).unflatten(-1, hc)
-        xd = self.lin_dst(x[..., : self.in_dst]).unflatten(-1, hc)
+        xd = self.lin_dst((x if x_dst is None else x_dst)[..., : self.in_dst]).unflatten(-1, hc)
         a_src = (xs * self.att_src).sum(-1)  # [..., N, H]
         a_dst = (xd * self.att_dst).sum(-1)
         slope = self.negative_slope
@@ -232,7 +247,8 @@ class GATConv(_AttentionConv):
         logit_self = (
             nn.functional.leaky_relu(a_src + a_dst, slope) if self.add_self_loops else None
         )
-        return self._finish(_attention(logits, logit_self, xs, senders, receivers, edge_weight))
+        out = _attention(logits, logit_self, xs, senders, receivers, edge_weight)
+        return self._finish(out, dst_scope)
 
 
 class GATv2Conv(_AttentionConv):
@@ -268,12 +284,15 @@ class GATv2Conv(_AttentionConv):
             self.lin_r.load_state_dict(self.lin_l.state_dict())
         self.att = _glorot((1, heads, out_features), generator)
 
-    def forward(self, x, senders, receivers, edge_weight) -> torch.Tensor:
-        """Masked GATv2 attention convolution."""
+    def forward(self, x, senders, receivers, edge_weight, *,
+                dst_scope: Optional[torch.Tensor] = None,
+                x_dst: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Masked GATv2 attention convolution; ``x_dst`` (default ``x``)
+        feeds the destination projection."""
         hc = (self.heads, self.out_features)
         xl = self.lin_l(x[..., : self.in_src]).unflatten(-1, hc)
         lin_r = self.lin_l if self.share_weights else self.lin_r
-        xr = lin_r(x[..., : self.in_dst]).unflatten(-1, hc)
+        xr = lin_r((x if x_dst is None else x_dst)[..., : self.in_dst]).unflatten(-1, hc)
         slope = self.negative_slope
         pre = xl[..., senders, :, :] + xr[..., receivers, :, :]  # [..., E, H, C]
         logits = (nn.functional.leaky_relu(pre, slope) * self.att).sum(-1)
@@ -281,7 +300,8 @@ class GATv2Conv(_AttentionConv):
             (nn.functional.leaky_relu(xl + xr, slope) * self.att).sum(-1)
             if self.add_self_loops else None
         )
-        return self._finish(_attention(logits, logit_self, xl, senders, receivers, edge_weight))
+        out = _attention(logits, logit_self, xl, senders, receivers, edge_weight)
+        return self._finish(out, dst_scope)
 
 
 def _mean_weights(edge_weight, receivers, n):
@@ -307,14 +327,66 @@ class SAGEConv(nn.Module):
         self.lin_l = Linear(in_features, out_features, bias=bias, generator=generator)
         self.lin_r = Linear(in_features, out_features, bias=False, generator=generator)
 
-    def forward(self, x, senders, receivers, edge_weight) -> torch.Tensor:
-        """Mean-aggregate neighbours + root transform."""
+    def forward(self, x, senders, receivers, edge_weight, *,
+                dst_scope: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Mean-aggregate neighbours + root transform; ``dst_scope`` zeroes
+        the whole output off its rows (the root term would otherwise leak
+        onto every node type)."""
         n = x.shape[-2]
         xin = x[..., : self.in_features]
         ew = edge_weight.to(xin.dtype)
         agg = weighted_gather_sum(ew, xin, senders, receivers, n) / _mean_weights(ew, receivers, n)
         out = agg @ self.lin_l.weight.T + xin @ self.lin_r.weight.T
-        return out if self.lin_l.bias is None else out + self.lin_l.bias
+        if self.lin_l.bias is not None:
+            out = out + self.lin_l.bias
+        return out if dst_scope is None else out * dst_scope.to(out.dtype)[:, None]
+
+
+class RGCNConv(nn.Module):
+    """PyG-exact relational GCN convolution over a typed homogeneous graph:
+    ``out_i = x_i @ root + sum_r mean_{j in N_r(i)} x_j @ W_r + bias``,
+    optionally with bases ``W_r = sum_b comp[r, b] V_b``.
+
+    Parameters in PyG's layout, not ``nn.Linear``-transposed: ``weight``
+    ``[R, in, out]`` (``[num_bases, in, out]`` with ``comp [R,
+    num_bases]``), ``root [in, out]``, ``bias [out]``.  The mean is
+    weighted by ``edge_weight``: a masked edge leaves both numerator and
+    denominator, and a relation with no live edge into a node adds 0.
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        num_relations: int,
+        num_bases: Optional[int] = None,
+        bias: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.num_relations = num_relations
+        self.num_bases = num_bases
+        n_w = num_relations if num_bases is None else num_bases
+        self.weight = _glorot((n_w, in_features, out_features), generator)
+        self.comp = None if num_bases is None else _glorot((num_relations, num_bases), generator)
+        self.root = _glorot((in_features, out_features), generator)
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def forward(self, x, senders, receivers, edge_weight, edge_type, *,
+                dst_scope: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Per-relation weighted mean of the senders, through the
+        relation's weight, plus the root transform and the bias."""
+        n = x.shape[-2]
+        xin = x[..., : self.in_features]
+        w = self.weight if self.comp is None else torch.einsum("rb,bio->rio", self.comp, self.weight)
+        out = xin @ self.root
+        for r in range(self.num_relations):
+            ew_r = (edge_weight * (edge_type == r).to(edge_weight.dtype)).to(xin.dtype)
+            agg = weighted_gather_sum(ew_r, xin, senders, receivers, n) / _mean_weights(ew_r, receivers, n)
+            out = out + agg @ w[r]
+        return _add_bias(out, self.bias, dst_scope)
 
 
 class GraphConv(nn.Module):

@@ -11,14 +11,16 @@ homogeneous GAT's one shared ``lin_src`` fills both ``lin_src`` and
 with ``load_state_dict`` (or :class:`.adapter.Model`'s ``params``).
 
 Hetero stacks of PyG ``HeteroConv`` (``conv.{2i}.convs.<src__rel__dst>.``)
-map to :class:`.gnn.HeteroGNN`'s ``conv.{i}.<src__rel__dst>.``; only
-per-relation GCNConvs are ported.  Hetero SAGE and GAT relations and the
-RGCN layout (``weight`` + ``root``) raise ``NotImplementedError``.
+map to :class:`.gnn.HeteroGNN`'s ``conv.{i}.<src__rel__dst>.``, with
+per-relation GCN, SAGE or GAT convs (a hetero GAT relation without
+``lin_dst`` takes a copy of ``lin_src``).  PyG's ``RGCNConv`` layout
+(``weight`` ``[R, in, out]`` or bases with ``comp``, ``root``, ``bias``;
+not transposed) maps to :class:`.gnn.RGCNNodeModel` under the same names.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -98,6 +100,11 @@ def _layer_params(sd: Mapping, pre: str, family: str) -> StateDict:
             p[f"nn.{j}.bias"] = _t(sd[f"{pre}nn.{idx}.bias"])
         # PyG keeps eps as a [1] buffer; the port's is a scalar
         p["eps"] = _t(sd.get(pre + "eps", torch.zeros(()))).reshape(())
+    elif family == "rgcn":
+        p["weight"] = _t(sd[pre + "weight"])
+        _opt(sd, p, "comp", pre + "comp")
+        p["root"] = _t(sd[pre + "root"])
+        _opt(sd, p, "bias", pre + "bias")
     else:
         raise ValueError(f"unsupported homogeneous family {family!r}")
     return p
@@ -111,6 +118,7 @@ _FAMILIES = {
     "sage": ("SAGE", ("lin_l.weight",)),
     "graphconv": ("GraphConv", ("lin_rel.weight",)),
     "gin": ("GIN", ("nn.0.weight",)),
+    "rgcn": ("RGCN", ("root",)),
 }
 
 
@@ -170,6 +178,13 @@ def gin_node_model_params(sd: Mapping) -> StateDict:
     return _stack_params(sd, "gin", _fc(sd, _indices(sd, "fc.")))
 
 
+def rgcn_node_model_params(sd: Mapping) -> StateDict:
+    """PyG ``RGCNConv`` layout (``conv.{2i}.weight`` ``[R, in, out]`` or
+    ``[num_bases, in, out]`` with ``comp [R, num_bases]``, ``root [in,
+    out]``, ``bias``; not transposed) as :class:`.gnn.RGCNNodeModel`'s."""
+    return _stack_params(sd, "rgcn", _fc(sd, _indices(sd, "fc.")))
+
+
 def hetero_relations_from_state_dict(sd: Mapping) -> List[Tuple[str, ...]]:
     """The relation tuples named by a hetero checkpoint's keys
     (``conv.0.convs.<src__rel__dst>.``, PyG ``HeteroConv``'s module-dict
@@ -179,40 +194,72 @@ def hetero_relations_from_state_dict(sd: Mapping) -> List[Tuple[str, ...]]:
     return [tuple(r.split("__")) for r in rels]
 
 
-def _hetero_layers(sd: Mapping) -> List[Tuple[str, List[str]]]:
-    """(key prefix, relation keys ``src__rel__dst`` sorted) of each hetero
-    layer ``conv.{i}.convs.``, in index order."""
+#: the conv families a hetero relation may have
+_HETERO_FAMILIES = ("gcn", "sage", "gat")
+
+
+def _hetero_layers(sd: Mapping) -> List[Tuple[str, List[Tuple[str, str]]]]:
+    """(key prefix, ``(relation key src__rel__dst, family)`` sorted by key)
+    of each hetero layer ``conv.{i}.convs.``, in index order.  A layer may
+    mix GCN, SAGE and GAT relations; any other family raises
+    ``ValueError``."""
     layers = []
     for ci in _indices(sd, "conv."):
         prefix = f"conv.{ci}.convs."
         rels = sorted({k[len(prefix):].split(".")[0] for k in sd if k.startswith(prefix)})
         if not rels:
             raise ValueError(f"hetero layer conv.{ci} has no relations")
-        families = {_layer_family(sd, f"{prefix}{r}.") for r in rels}
-        if families != {"gcn"}:
-            raise NotImplementedError(
-                f"hetero layer conv.{ci} has {sorted(families)} relations: only per-relation "
-                "GCNConvs are ported; hetero SAGE and GAT come with FastBatchedHeteroGAT "
-                "(the next slice)"
-            )
-        layers.append((prefix, rels))
+        fams = [(rel, _layer_family(sd, f"{prefix}{rel}.")) for rel in rels]
+        for rel, fam in fams:
+            if fam not in _HETERO_FAMILIES:
+                raise ValueError(
+                    f"hetero relation {rel!r} layer family {fam!r} is "
+                    "not supported (GCN/SAGE/GAT per-relation convs are)"
+                )
+        layers.append((prefix, fams))
     return layers
+
+
+def _hetero_params(sd: Mapping, family: Optional[str] = None) -> StateDict:
+    """A HeteroConv stack's parameters as :class:`.gnn.HeteroGNN`'s
+    (``conv.{i}.<src__rel__dst>.*``, then the head).  With ``family``,
+    every relation must be of it."""
+    name = _FAMILIES[family][0] if family else "GCN/SAGE/GAT"
+    out: StateDict = {}
+    for i, (prefix, fams) in enumerate(_hetero_layers(sd)):
+        for rel, fam in fams:
+            if family is not None and fam != family:
+                raise ValueError(f"hetero relation {rel!r} of conv.{i} is {fam!r}, not {family!r}")
+            for k, v in _layer_params(sd, f"{prefix}{rel}.", fam).items():
+                out[f"conv.{i}.{rel}.{k}"] = v
+    fc = _fc(sd, _indices(sd, "fc."))
+    if not out or not fc:
+        raise ValueError(f"state dict does not look like a HeteroConv {name} stack")
+    out.update(fc)
+    return out
 
 
 def hetero_gcn_params(sd: Mapping) -> StateDict:
     """A HeteroConv-of-GCNConv state dict (``conv.{2i}.convs.<src__rel__dst>.
     lin.weight`` / ``.bias``, ``fc.{2j}.*``) as :class:`.gnn.HeteroGNN`'s
     (``conv.{i}.<src__rel__dst>.weight``)."""
-    out: StateDict = {}
-    for i, (prefix, rels) in enumerate(_hetero_layers(sd)):
-        for rel in rels:
-            for k, v in _layer_params(sd, f"{prefix}{rel}.", "gcn").items():
-                out[f"conv.{i}.{rel}.{k}"] = v
-    fc = _fc(sd, _indices(sd, "fc."))
-    if not out or not fc:
-        raise ValueError("state dict does not look like a HeteroConv GCN stack")
-    out.update(fc)
-    return out
+    return _hetero_params(sd, "gcn")
+
+
+def hetero_sage_params(sd: Mapping) -> StateDict:
+    """A HeteroConv-of-SAGEConv state dict (``conv.{2i}.convs.<src__rel__dst>.
+    lin_l.{weight,bias}``, ``.lin_r.weight``, ``fc.{2j}.*``) as
+    :class:`.gnn.HeteroGNN`'s."""
+    return _hetero_params(sd, "sage")
+
+
+def hetero_gat_params(sd: Mapping) -> StateDict:
+    """A HeteroConv-of-GATConv state dict (the reference hetero *test*
+    architecture: ``conv.{2i}.convs.<src__rel__dst>.{lin_src.weight,
+    lin_dst.weight, att_src, att_dst, bias}``, ``fc.{2j}.*``) as
+    :class:`.gnn.HeteroGNN`'s; a missing ``lin_dst`` is a copy of
+    ``lin_src``."""
+    return _hetero_params(sd, "gat")
 
 
 def gat_config_from_state_dict(sd: Mapping) -> List[dict]:
@@ -284,24 +331,44 @@ def _homo_layer(sd: Mapping, pre: str, family: str, prev: int) -> Tuple[nn.Modul
     return cls(prev, width), p, width
 
 
+def _hetero_conv(family: str, p: StateDict, prev: Optional[int]) -> Tuple[nn.Module, int]:
+    """(conv module, output width) of one hetero relation from its
+    parameters ``p``; ``prev`` the layer's input width (None: read it from
+    the weight).  A GAT relation concatenates its heads, as the JAX
+    package's importer builds it."""
+    from .layers import GATConv, GCNConv, SAGEConv
+
+    if family == "gat":
+        _, h, c = p["att_src"].shape
+        prev = int(p["lin_src.weight"].shape[1]) if prev is None else prev
+        conv = GATConv((prev, prev), int(c), heads=int(h), add_self_loops=False, bias="bias" in p)
+        return conv, int(h * c)
+    cls, key, bias_key = {
+        "gcn": (GCNConv, "weight", "bias"), "sage": (SAGEConv, "lin_l.weight", "lin_l.bias"),
+    }[family]
+    out_f, in_f = (int(d) for d in p[key].shape)
+    return cls(in_f if prev is None else prev, out_f, bias=bias_key in p), out_f
+
+
 def import_any(sd: Mapping) -> Tuple[nn.Module, StateDict]:
-    """Sniff a homogeneous PyG conv+fc checkpoint's architecture: returns a
-    ready ``(model_def, params)`` pair.
+    """Sniff a PyG conv+fc checkpoint's architecture: returns a ready
+    ``(model_def, params)`` pair.
 
     Per-layer families come from the key patterns (``lin.weight``,
     ``lin_src`` / ``att_src``, ``lin_l`` + ``att``, ``lin_l`` + ``lin_r``,
-    ``lin_rel``, ``nn.{j}``).  GCN-only stacks build
+    ``lin_rel``, ``nn.{j}``, ``weight`` + ``root``).  GCN-only stacks build
     :class:`.gnn.GCNNodeModel` (the fused engine's model); mixed stacks
-    build :class:`.gnn.ConvStackNodeModel`; ``.convs.<src__rel__dst>.``
-    keys of GCNConvs build :class:`.gnn.HeteroGNN`, whose node types are
-    the relations' type names sorted and whose relations are each layer's
-    keys sorted (as the JAX package builds them; the port's
+    build :class:`.gnn.ConvStackNodeModel`; RGCN stacks build
+    :class:`.gnn.RGCNNodeModel` (``num_relations`` from ``comp`` where
+    there is one; mixed with another family, ``ValueError``);
+    ``.convs.<src__rel__dst>.`` keys of GCN, SAGE or GAT convs build
+    :class:`.gnn.HeteroGNN`, whose node types are the relations' type
+    names sorted and whose relations are each layer's keys sorted (as the
+    JAX package builds them; the port's
     :class:`..explain.explainer.Explainer` matches a graph's types to them
-    by name).  Unknown layouts raise ``ValueError``; hetero SAGE or GAT
-    relations and the RGCN layout raise ``NotImplementedError``.
+    by name).  Unknown layouts raise ``ValueError``.
     """
-    from .gnn import ConvStackNodeModel, GCNNodeModel, HeteroGNN
-    from .layers import GCNConv
+    from .gnn import ConvStackNodeModel, GCNNodeModel, HeteroGNN, RGCNNodeModel
 
     fc = _fc(sd, _indices(sd, "fc."))
     if not fc:
@@ -317,23 +384,35 @@ def import_any(sd: Mapping) -> Tuple[nn.Module, StateDict]:
     if any(k.startswith(f"conv.{conv_idx[0]}.convs.") for k in sd):
         relations = hetero_relations_from_state_dict(sd)
         ntypes = sorted({r[0] for r in relations} | {r[-1] for r in relations})
-        params = hetero_gcn_params(sd)
+        params = _hetero_params(sd)
         layers, prev = [], None
-        for i, (_prefix, rels) in enumerate(_hetero_layers(sd)):
+        for i, (_prefix, fams) in enumerate(_hetero_layers(sd)):
             layer = {}
-            for rel in rels:
-                w = params[f"conv.{i}.{rel}.weight"]
-                layer[tuple(rel.split("__"))] = GCNConv(
-                    int(w.shape[1]) if prev is None else prev, int(w.shape[0]),
-                    bias=f"conv.{i}.{rel}.bias" in params,
-                )
-                width = int(w.shape[0])
+            for rel, fam in fams:
+                pre = f"conv.{i}.{rel}."
+                p = {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+                layer[tuple(rel.split("__"))], width = _hetero_conv(fam, p, prev)
             layers.append(layer)
             prev = width
         return HeteroGNN(ntypes, layers, fc_channels, out_features), params
     families = [_layer_family(sd, f"conv.{ci}.") for ci in conv_idx]
     if "rgcn" in families:
-        raise NotImplementedError("RGCN checkpoints are not ported yet (slice 6)")
+        if set(families) != {"rgcn"}:
+            raise ValueError(f"RGCN layers cannot mix with other conv families (found {families})")
+        params = rgcn_node_model_params(sd)
+        w0 = params["conv.0.weight"]
+        comp = params.get("conv.0.comp")
+        n_conv = sum(k.endswith(".root") for k in params)
+        mdef = RGCNNodeModel(
+            int(w0.shape[1]), int(w0.shape[0] if comp is None else comp.shape[0]),
+            conv_channels=tuple(int(params[f"conv.{i}.weight"].shape[2]) for i in range(n_conv)),
+            num_bases=None if comp is None else int(comp.shape[1]),
+            fc_channels=fc_channels, out_features=out_features,
+        )
+        for i, conv in enumerate(mdef.conv):
+            if f"conv.{i}.bias" not in params:
+                conv.bias = None
+        return mdef, params
     if set(families) == {"gcn"}:
         params = gcn_node_model_params(sd)
         channels = tuple(v.shape[0] for k, v in params.items() if k.startswith("conv.") and k.endswith("weight"))

@@ -99,16 +99,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    against the CPU; then bench.py's workload (20k / 160k, GCN-128, 16
    queries) in Shapley and community mode: explanations/s (best of 3
    after a warm-up), the size buckets, a phase split, the device's busy
-   share in one traced call, peak memory, a launch-plan cache hit, and
+   share in one traced call (the card's activity only, its trace written
+   under ``build/traces/``), peak memory, a launch-plan cache hit, and
    every query held against the CPU;
 13. hetero ``explain_many`` through the public import (``px``; its array
    form ``batch._explain_many``; no hand kernel): bench.py's hetero
    workload (2 x 4000 nodes, 3 x 24,000 edges, a hetero GCN, 16 queries)
    on the hetero_dense formulation in Shapley and community mode:
-   explanations/s, the phase split, the busy share, peak memory, stacks
-   and buckets; then the typed coo route (4 edge queries of (a, r1, b) and
-   a graph problem); every query held against the CPU (the graph problem
-   at a reduced budget); one ``px.Explainer`` call.
+   explanations/s, the phase split, the busy share (the card's activity
+   only), peak memory, stacks and buckets; then the typed coo route (4
+   edge queries of (a, r1, b) and a graph problem); every query held
+   against the CPU (the graph problem at a reduced budget); one
+   ``px.Explainer`` call;
+14. the last model families (no hand kernel): on bench.py's hetero
+   explanation graph, a HeteroGNN of GATConvs (conv (128,), fc (128, 64),
+   seeded weights) explains 4 node queries of type a in Shapley and in
+   community mode on ``FastBatchedHeteroGAT``'s plans (asserted), 1 edge
+   query of (a, r1, b) through the generic forward and 4 node queries
+   through ``explain_many`` (the typed coo route); a HeteroGNN of
+   SAGEConvs 1 node query; ``RGCNNodeModel`` (3 relations, conv (128,
+   128)) 2 node queries on the 20k / 160k graph with seeded edge types;
+   then ``import_any`` on the three models' state dicts in PyG's layout,
+   a forward each held against the factory's model.  The first query of
+   each model and the ``explain_many`` call are held against the CPU.
 
 The node path (4) also prints ``Explainer._explain``'s diagnostics (its
 phase split) for each 20k / 160k query.
@@ -1045,7 +1058,8 @@ def phase_explain_many(dev, config) -> None:
     from bikg_graph_explainability_public_tpu_torch.models.checkpoint import load_params
     from bikg_graph_explainability_public_tpu_torch.models.gnn import GCNNodeModel
     from bikg_graph_explainability_public_tpu_torch.utils.padding import round_up_pow2
-    from bikg_graph_explainability_public_tpu_torch.utils.profiling import PhaseTimer, device_trace
+    from bikg_graph_explainability_public_tpu_torch.utils.profiling import PhaseTimer
+    from torch.profiler import ProfilerActivity, profile
 
     data = np.load(os.path.join(ROOT, "test_data", "toy_graph_36n.npz"))
     feat, ei = data["feat"], data["edge_index"]
@@ -1120,10 +1134,14 @@ def phase_explain_many(dev, config) -> None:
             log(f"{label} phases, {name} (device synchronised at each phase's exit): "
                 + ", ".join(f"{k} {v:.4f} s x{timer.counts[k]}" for k, v in timer.totals.items()))
         t_prof = time.perf_counter()
-        with device_trace(os.path.join(ROOT, "build", "traces")) as prof:
+        # the card's activity only: recording the host's too cost seconds
+        # of post-processing a call
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             call()
             traced_wall = time.perf_counter() - t0
+        os.makedirs(os.path.join(ROOT, "build", "traces"), exist_ok=True)
+        prof.export_chrome_trace(os.path.join(ROOT, "build", "traces", f"explain_many_{mode}.json"))
         log(f"{label}: the traced call took {traced_wall * 1e3:.1f} ms; its device time "
             f"against the best unprofiled call's wall:")
         log_device_profile(prof, best, label, traced_wall)
@@ -1186,7 +1204,8 @@ def log_device_profile(prof, wall_s: float, label: str, traced_wall_s=None) -> N
         ),
         reverse=True,
     )
-    log(f"{label} profile: top host operations by self CPU time:")
+    if host:  # none where only the card's activity was recorded
+        log(f"{label} profile: top host operations by self CPU time:")
     for ms, count, name in host[:6]:
         log(f"  {ms:10.3f} ms  {count:6d} calls  {name[:100]}")
 
@@ -2143,20 +2162,29 @@ def hetero_graph(n_per_type: int, e_per_rel: int, seed: int):
     return feat, ei, rng
 
 
-def hetero_model(node_types, relations, in_features, conv, fc, seed: int, device):
-    """A HeteroGNN of GCNConvs with weights and biases drawn from a seeded
+def _seeded_biases(mdef, g) -> None:
+    """The conv layers' biases drawn from U(-0.1, 0.1) by ``g`` (the
+    layers' own are 0, which would hide a bias off its relation's scope)."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in mdef.named_parameters():
+            if name.startswith("conv.") and name.endswith("bias"):
+                p.uniform_(-0.1, 0.1, generator=g)
+
+
+def hetero_model(node_types, relations, in_features, conv, fc, seed: int, device, factory=None):
+    """A HeteroGNN of GCNConvs (or of ``factory``'s convs, a
+    ``hetero_*_for_relations``) with weights and biases drawn from a seeded
     ``torch.Generator`` (the same on every device)."""
     import torch
     from bikg_graph_explainability_public_tpu_torch.models.adapter import Model
     from bikg_graph_explainability_public_tpu_torch.models.gnn import hetero_gcn_for_relations
 
     g = torch.Generator().manual_seed(seed)
-    mdef = hetero_gcn_for_relations(node_types, relations, in_features, conv_channels=conv,
-                                    fc_channels=fc, generator=g)
-    with torch.no_grad():
-        for name, p in mdef.named_parameters():
-            if name.startswith("conv.") and name.endswith("bias"):
-                p.uniform_(-0.1, 0.1, generator=g)
+    mdef = (factory or hetero_gcn_for_relations)(node_types, relations, in_features,
+                                                 conv_channels=conv, fc_channels=fc, generator=g)
+    _seeded_biases(mdef, g)
     return Model(mdef, device=device)
 
 
@@ -2319,7 +2347,7 @@ def phase_hetero_explain_many(dev) -> None:
         wall = min(walls)
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         t_prof = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the card's activity only
             t0 = time.perf_counter()
             call("card", queries, **kw)
             traced_wall = time.perf_counter() - t0
@@ -2375,6 +2403,156 @@ def phase_hetero_explain_many(dev) -> None:
     if not np.isfinite(ex.mean).all():
         raise AssertionError("px.Explainer: scores are not finite")
     log(f"px.Explainer through the public import: a{queries[0]}, {len(ex.names)} elements ok")
+
+
+def _pyg_layout(state: dict, hetero: bool) -> dict:
+    """A port model's state dict as the PyG checkpoint it came from, numpy:
+    ``conv.{i}`` -> ``conv.{2i}`` (``conv.{2i}.convs.`` for a HeteroConv
+    stack), ``fc.{j}`` -> ``fc.{2j}``."""
+    out = {}
+    for k, v in state.items():
+        group, idx, rest = k.split(".", 2)
+        inner = "convs." if hetero and group == "conv" else ""
+        out[f"{group}.{2 * int(idx)}.{inner}{rest}"] = v.detach().cpu().numpy()
+    return out
+
+
+def phase_remaining_families(dev, config) -> None:
+    """The last model families, at full width (conv (128,), fc (128, 64),
+    seeded weights and biases): on bench.py's hetero explanation graph (2 x
+    4000 nodes, 3 x 24,000 edges, seed 9) a HeteroGNN of GATConvs explains
+    4 node queries of type a in Shapley mode and in community mode (32
+    communities a type) on ``FastBatchedHeteroGAT``'s plans (the adapter
+    must have picked that engine), 1 edge query of (a, r1, b) through the
+    generic forward, and 4 node queries through ``explain_many`` (the typed
+    coo route, ``CFG_FULL``); a HeteroGNN of SAGEConvs 1 node query; then
+    ``RGCNNodeModel`` (3 relations, conv (128, 128)) 2 node queries on the
+    20k / 160k graph with seeded edge types; last ``import_any`` on
+    in-memory PyG-layout state dicts of the three models, one forward each
+    held against the factory's model.  The first query of each model (of
+    each GAT mode) and the ``explain_many`` call are held against the same
+    run on the CPU.  No hand kernel runs here."""
+    import numpy as np
+    import torch
+    from bikg_graph_explainability_public_tpu_torch.explain import batch
+    from bikg_graph_explainability_public_tpu_torch.explain.explainer import Explainer
+    from bikg_graph_explainability_public_tpu_torch.graph import from_arrays, hetero_to_homo
+    from bikg_graph_explainability_public_tpu_torch.graph import hetero_names_to_homo
+    from bikg_graph_explainability_public_tpu_torch.models import gnn
+    from bikg_graph_explainability_public_tpu_torch.models.adapter import Model
+    from bikg_graph_explainability_public_tpu_torch.models.fast_hetero import FastBatchedHeteroGAT
+    from bikg_graph_explainability_public_tpu_torch.models.torch_import import import_any
+
+    t_phase = time.perf_counter()
+
+    def peak(label: str) -> None:
+        """The card's peak memory since the last call, then reset."""
+        log(f"{label}: peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_per, e_per, seed = HETERO_SMALL
+    feat, ei, rng = hetero_graph(n_per, e_per, seed)
+    node_names = {t: [f"{t}{i}" for i in range(n_per)] for t in ("a", "b")}
+    edge_names = {r: [f"{r[1]}_{i}" for i in range(e_per)] for r in HETERO_RELS}
+    perm = np.random.default_rng(7)
+    comms = {t: [[v[j] for j in perm.permutation(n_per)[i::32]] for i in range(32)]
+             for t, v in node_names.items()}
+    comm_names = {t: [f"{t}_community_{i}" for i in range(32)] for t in comms}
+    queries = [int(q) for q in rng.integers(0, n_per, 4)]
+    edge_query = f"r1_{int(rng.integers(0, e_per))}"
+    models = {}
+    for family, factory in (("GAT", gnn.hetero_gat_for_relations),
+                            ("SAGE", gnn.hetero_sage_for_relations)):
+        for where, d in (("card", dev), ("cpu", "cpu")):
+            models[family, where] = hetero_model(["a", "b"], HETERO_RELS, HETERO_F, (HIDDEN,),
+                                                 (HIDDEN, 64), seed, d, factory=factory)
+
+    def explain(key, feat, ei, names, element, check, label, **kw):
+        t0 = time.perf_counter()
+        ex = Explainer(feat, ei, models[key, "card"], config, names, device=dev, **kw)
+        ex = ex._explain(element, times=1)
+        torch.cuda.synchronize()
+        msg = f"{label}: {len(ex.names)} elements, wall {time.perf_counter() - t0:.3f} s"
+        if check:
+            cpu = Explainer(feat, ei, models[key, "cpu"], config, names, device="cpu",
+                            **kw)._explain(element, times=1)
+            msg += f", max |card - cpu| {_check_against_cpu(ex, cpu, label):.3e}"
+        elif not np.isfinite(ex.mean).all():
+            raise AssertionError(f"{label}: non-finite scores")
+        log(f"{msg} ok ({time.perf_counter() - t_phase:.1f} s into the phase)")
+
+    graph_label = f"{2 * n_per}/{3 * e_per} conv ({HIDDEN},)"
+    for mode, kw in (("shapley", {}), ("community", dict(pathways=comms, pathway_names=comm_names))):
+        for qi, q in enumerate(queries):
+            explain("GAT", feat, ei, node_names, f"a{q}", qi == 0,
+                    f"hetero GAT node path {graph_label} {mode} query a{q}", element_type="a", **kw)
+            engine = models["GAT", "card"]._fast_cache[1]
+            if not isinstance(engine, FastBatchedHeteroGAT):
+                raise AssertionError(f"hetero GAT node query a{q} ran on {type(engine).__name__}")
+    explain("GAT", feat, ei, edge_names, edge_query, True,
+            f"hetero GAT edge path {graph_label} query {edge_query} (generic forward)",
+            problem="edge_prediction", element_type=HETERO_RELS[0])
+    explain("SAGE", feat, ei, node_names, f"a{queries[0]}", True,
+            f"hetero SAGE node path {graph_label} query a{queries[0]}", element_type="a")
+    peak("hetero GAT and SAGE queries (card and CPU runs)")
+
+    # hetero GAT explain_many: node problems take the typed coo route
+    flat_names, _ = hetero_names_to_homo(node_names)
+    graphs = {w: hetero_to_homo(feat, ei, device=d)[0] for w, d in (("card", dev), ("cpu", "cpu"))}
+    t0 = time.perf_counter()
+    got = batch._explain_many(models["GAT", "card"], graphs["card"], queries, CFG_FULL,
+                              names=flat_names)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    diff = _hold_many(got, batch._explain_many(models["GAT", "cpu"], graphs["cpu"], queries,
+                                               CFG_FULL, names=flat_names), "hetero GAT explain_many")
+    log(f"hetero GAT explain_many {graph_label} Q={len(queries)} (typed coo, CFG_FULL): wall "
+        f"{wall:.3f} s ({len(queries) / wall:.2f} explanations/s, the first call), "
+        f"{[len(x.names) for x in got]} elements, held against the CPU's call "
+        f"({time.perf_counter() - t0:.2f} s on the host), max |card - cpu| {diff:.3e} ok "
+        f"({time.perf_counter() - t_phase:.1f} s into the phase)")
+    peak("hetero GAT explain_many")
+
+    # RGCN on the 20k / 160k graph with seeded edge types
+    rfeat, rei, rrng = random_graph(NODE_N, NODE_E, seed=5)
+    etypes = np.random.default_rng(13).integers(0, len(HETERO_RELS), NODE_E)
+    rnames = [str(i) for i in range(NODE_N)]
+
+    def rgcn(d):
+        g = torch.Generator().manual_seed(3)
+        mdef = gnn.RGCNNodeModel(N_FEATS, len(HETERO_RELS), conv_channels=(HIDDEN, HIDDEN),
+                                 fc_channels=(HIDDEN, 64), generator=g)
+        _seeded_biases(mdef, g)
+        return Model(mdef, device=d)
+
+    models["RGCN", "card"], models["RGCN", "cpu"] = rgcn(dev), rgcn("cpu")
+    for qi, q in enumerate(rrng.integers(0, NODE_N, 2)):
+        explain("RGCN", rfeat, rei, rnames, str(int(q)), qi == 0,
+                f"RGCN node path 20k/160k conv ({HIDDEN}, {HIDDEN}) 3 relations query {int(q)}",
+                edge_types=etypes)
+    peak("RGCN queries")
+
+    # import_any on the three models' PyG-layout state dicts
+    for family in ("GAT", "SAGE", "RGCN"):
+        built = models[family, "card"]
+        mdef, params = import_any(_pyg_layout(built.model_def.state_dict(), family != "RGCN"))
+        imported = Model(mdef, params, device=dev)
+        if family == "RGCN":
+            g = from_arrays(rfeat, rei, edge_type=etypes, device=dev)
+            want, got = built.infer(g), imported.infer(g)
+        else:
+            g, _ = hetero_to_homo(feat, ei, device=dev)
+            g_imp, _ = hetero_to_homo(feat, {r: ei[r] for r in mdef.relations}, device=dev)
+            want, got = built.infer(g), imported.infer(g_imp)
+        n = g.num_nodes
+        err = float((got[:n] - want[:n]).abs().max())
+        if not torch.allclose(got[:n], want[:n], rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"import_any {family}: forward differs from the factory's by {err:.3e}")
+        log(f"import_any {family} ({type(mdef).__name__}, {len(params)} tensors): forward on "
+            f"{n} nodes held against the factory's model, max abs diff {err:.3e} ok")
+    peak("import_any forwards")
 
 
 def scoped_kernel_timing(table, n_src, b, label) -> dict:
@@ -2650,6 +2828,10 @@ def main() -> int:
     phase_hetero_explain_many(dev)
     expect_counts(read_counts(), {}, "hetero explain_many (hetero_dense and typed coo, plain torch)")
     done("hetero explain_many")
+    reset_counts()
+    phase_remaining_families(dev, config)
+    expect_counts(read_counts(), {}, "hetero GAT / SAGE and RGCN (plans, generic forward, typed coo)")
+    done("hetero GAT / SAGE and RGCN")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     records = [rec_21, rec_op, rec_22, rec_23, rec_24, rec_tr] + ladder + [rec_29, rec_flag]

@@ -47,7 +47,8 @@ DEPARTURES = {
         "GCNConv.__init__", "GATConv.__init__", "GATv2Conv.__init__", "GINConv.__init__",
         "GraphConv.__init__", "SAGEConv.__init__", "Linear.__init__",
         "gat_node_model", "gatv2_node_model", "gin_node_model", "graph_conv_node_model",
-        "sage_node_model", "hetero_gcn_for_relations",
+        "sage_node_model", "hetero_gcn_for_relations", "hetero_sage_for_relations",
+        "hetero_gat_for_relations", "RGCNConv.__init__", "RGCNNodeModel.__init__",
     )},
     **{name: (dict(append=("device",)), _DEV) for name in (
         "Data.__init__", "Explainer.__init__", "Kernel.__init__", "from_arrays",
@@ -55,7 +56,7 @@ DEPARTURES = {
     )},
     **{name: (dict(drop=("params",)), _MOD) for name in (
         "ConvStackNodeModel.backbone", "ConvStackNodeModel.head",
-        "HeteroGNN.backbone", "HeteroGNN.head",
+        "HeteroGNN.backbone", "HeteroGNN.head", "RGCNNodeModel.backbone", "RGCNNodeModel.head",
     )},
     "Model.__init__": (
         dict(default={"params": None}, append=("device",)),

@@ -180,10 +180,19 @@ def test_hetero_importers_match_jax():
 
 
 def test_hetero_sage_checkpoint_names_the_next_slice():
+    """A hetero SAGE checkpoint imports as the JAX package imports it, with
+    the same forward (more in tests/test_torch_hetero_families.py); the GCN
+    importer refuses its relations by name."""
     sd = _hetero_state_dict(family="sage")
-    # the JAX package imports it; the port refuses it until hetero SAGE is ported
-    jimport.import_any({k: v.numpy() for k, v in sd.items()})
-    with pytest.raises(NotImplementedError, match="FastBatchedHeteroGAT"):
-        timport.import_any(sd)
-    with pytest.raises(NotImplementedError):
+    jdef, jp = jimport.import_any({k: v.numpy() for k, v in sd.items()})
+    tdef, tparams = timport.import_any(sd)
+    assert [type(c).__name__ for c in tdef.conv_layers[0].values()] == ["SAGEConv"] * len(RELS)
+    tdef.load_state_dict(tparams)
+    feat, ei = _hetero_inputs(seed=6, fb=5)
+    ei = {r: ei[r] for r in jdef.relations}
+    jg, _ = jgraph.hetero_to_homo(feat, ei)
+    tg, _ = tgraph.hetero_to_homo(feat, ei, device="cpu")
+    want = np.asarray(px.Model(jdef, jp, fast=False).infer(jg))
+    np.testing.assert_allclose(Model(tdef, device="cpu", fast=False).infer(tg).numpy(), want, **TOL)
+    with pytest.raises(ValueError, match="not 'gcn'"):
         timport.hetero_gcn_params(sd)

@@ -336,21 +336,23 @@ def test_gat_importer_fills_lin_dst_from_the_shared_lin_src():
 
 def test_import_any_refuses_what_is_not_ported_or_unknown():
     sd = _pyg_state_dict(STACKS["gcn"], seed=5)
-    # hetero layouts (GCN relations import, tests/test_torch_hetero_graph.py):
-    # a layer without relations is refused, as in JAX; SAGE relations wait
-    # for the next slice
+    # hetero layouts (tests/test_torch_hetero_graph.py and
+    # tests/test_torch_hetero_families.py): a layer without relations is
+    # refused, as in JAX; hetero SAGE relations and RGCN import as JAX
+    # imports them
     hetero = {k.replace("conv.0.", "conv.0.convs.a__to__b."): v for k, v in sd.items()}
     with pytest.raises(ValueError, match="no relations"):
         timport.import_any(hetero)
     sage = _pyg_state_dict(STACKS["sage"], seed=5)
     hetero = {k.replace("conv.0.", "conv.0.convs.a__to__b.").replace("conv.2.", "conv.2.convs.a__to__b."): v
               for k, v in sage.items()}
-    with pytest.raises(NotImplementedError, match="next slice"):
-        timport.import_any(hetero)
+    tdef, _ = timport.import_any(hetero)
+    jdef, _ = jimport.import_any(hetero)
+    assert tdef.relations == jdef.relations == [("a", "to", "b")]
     rgcn = {"conv.0.weight": np.zeros((3, 6, 4), np.float32), "conv.0.root": np.zeros((6, 4), np.float32),
             "conv.0.comp": np.zeros((3, 2), np.float32), **{k: v for k, v in sd.items() if k.startswith("fc.")}}
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        timport.import_any(rgcn)
+    tdef, _ = timport.import_any(rgcn)
+    assert (tdef.num_relations, tdef.conv[0].num_bases) == (3, 2)
     unknown = {"conv.0.foo.weight": np.zeros((4, 6), np.float32), **{k: v for k, v in sd.items() if k.startswith("fc.")}}
     with pytest.raises(ValueError, match="unrecognised"):
         timport.import_any(unknown)

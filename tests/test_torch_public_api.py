@@ -1,7 +1,7 @@
 """PyTorch port: the package's public surface.
 
 ``import bikg_graph_explainability_public_tpu_torch as px`` exports the JAX
-package's ``__all__`` minus the names not ported yet, without importing
+package's ``__all__`` (none of its names is left unported), without importing
 pandas or jax and without building a kernel; the reference-named facades
 (``compat``), ``version``, checkpoint IO, ``set_seed``, the approximate
 kernel and ``Graph``'s methods agree with the JAX package's; the CLI's
@@ -37,12 +37,13 @@ PKG = "bikg_graph_explainability_public_tpu_torch"
 CKPT = os.path.join(ROOT, "test_data", "gcn_homo_36n_own.npz")
 TOY = os.path.join(ROOT, "test_data", "toy_graph_36n.npz")
 TOL = dict(rtol=1e-4, atol=1e-6)
-#: in the JAX package's ``__all__``, not ported yet (ROADMAP queue 1)
-UNPORTED = {"RGCNNodeModel", "RGCNConv", "hetero_sage_for_relations", "hetero_gat_for_relations"}
+#: in the JAX package's ``__all__`` but not in the port's: none
+UNPORTED: set = set()
 
 
 def test_all_is_the_jax_packages_minus_the_unported():
     assert set(px.__all__) == set(jpx.__all__) - UNPORTED
+    assert not UNPORTED and px.__all__ == jpx.__all__
     assert len(px.__all__) == len(set(px.__all__))
     for name in px.__all__:
         assert getattr(px, name) is not None, name
