@@ -8,6 +8,9 @@
     python -m bikg_graph_explainability_public_tpu_torch.cli explain-batch \
         --graph graph.npz --checkpoint model.pth.tar --elements 10,3,25 ...
 
+    torchrun --nproc-per-node N -m bikg_graph_explainability_public_tpu_torch.cli \
+        explain-batch --mesh-devices N ...   # queries split over N cards (NCCL)
+
     python -m bikg_graph_explainability_public_tpu_torch.cli version
 
 Graph file (homogeneous): ``.npz`` with ``feat`` [N,F], ``edge_index``
@@ -23,7 +26,8 @@ Checkpoint: a torch ``.pth.tar`` of any layout
 ``--device`` defaults to ``cuda``; nothing falls back to the CPU unless
 asked.  pandas is imported only by the commands that write frames.  The
 JAX package's ``bench`` command runs its own ``bench.py`` and has no
-counterpart here, and ``--mesh-devices`` waits for ``parallel/``.
+counterpart here.  ``--mesh-devices N`` needs N ranks (torchrun), one a
+device; only rank 0 prints or writes files.
 """
 
 from __future__ import annotations
@@ -179,6 +183,33 @@ def cmd_explain_batch(args: argparse.Namespace) -> int:
     hetero graph's type ids are renumbered into the model's order by name
     (:func:`.explain.explainer.align_types`) before ``explain_many``, which
     takes them as positions."""
+    import torch.distributed as dist
+
+    n, mesh, started = args.mesh_devices, None, False
+    if n:
+        from .parallel.mesh import initialize_distributed, make_mesh
+
+        joined = dist.is_initialized()
+        initialize_distributed(device=args.device)  # torchrun's environment
+        started = not joined and dist.is_initialized()
+    try:
+        if n:
+            world = dist.get_world_size() if dist.is_initialized() else 0
+            if world != n:
+                _fail(
+                    f"--mesh-devices {n} needs {n} ranks, one a device, and found {world}: "
+                    f"launch with torchrun --nproc-per-node {n} -m "
+                    f"bikg_graph_explainability_public_tpu_torch.cli explain-batch "
+                    f"--mesh-devices {n} ..."
+                )
+            mesh = make_mesh(n, device=args.device)
+        return _explain_batch(args, mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _explain_batch(args: argparse.Namespace, mesh) -> int:
     from .explain.batch import explain_many
     from .explain.explainer import align_types
     from .graph import from_arrays, hetero_to_homo
@@ -211,9 +242,11 @@ def cmd_explain_batch(args: argparse.Namespace) -> int:
             _fail(f"element {el!r} is not present in the graph")
     dfs = explain_many(
         model, g, [name_to_idx[el] for el in elements], cfg.to_dict(), names=names,
-        times=args.times, pathways=pathways, pathway_names=pathway_names,
+        times=args.times, mesh=mesh, pathways=pathways, pathway_names=pathway_names,
         problem=args.problem,
     )
+    if mesh is not None and mesh.get_rank() != 0:
+        return 0
     for el, out in zip(elements, dfs):
         cv_df, pw_df = out if isinstance(out, tuple) else (out, None)
         if args.out:
@@ -269,6 +302,10 @@ def main(argv=None) -> int:
     peb = sub.add_parser("explain-batch", help="explain many elements at once (throughput path)")
     _add_common(peb)
     peb.add_argument("--elements", required=True, help="comma-separated element names")
+    peb.add_argument(
+        "--mesh-devices", type=int, default=0,
+        help="split the query axis over this many ranks, one a device (0 = no mesh)",
+    )
     peb.add_argument("--out", help="CSV output path prefix")
     peb.set_defaults(fn=cmd_explain_batch)
 

@@ -53,9 +53,9 @@ class ExplainerConfig:
     weight_decay: float = 1e-2  # hardcoded in the reference (wlm.py:478)
     pad_mode: str = "pow2"  # subgraph capacity bucketing
     forward_chunk: Optional[int] = None  # masks per forward step
-    # accepted so that configurations carry over: a mesh is not ported
-    # (validate() refuses one), and the port computes in float32 throughout,
-    # so matmul_precision has nothing to choose
+    # accepted so that configurations carry over, and read nowhere, as in
+    # the JAX package (a mesh is passed to explain_many(mesh=)); the port
+    # computes in float32 throughout, so matmul_precision has nothing to choose
     mesh_shape: Optional[Tuple[int, ...]] = None
     matmul_precision: str = "default"  # "default" | "highest"
     spmm_backend: str = "auto"
@@ -75,8 +75,6 @@ class ExplainerConfig:
         if self.pad_mode not in ("pow2", "multiple", "exact"):
             raise ValueError(f"unknown pad_mode {self.pad_mode!r}")
         check_spmm_backend(self.spmm_backend)
-        if self.mesh_shape is not None:
-            raise NotImplementedError("mesh_shape: a device mesh is not ported")
         return self
 
     def to_dict(self) -> Dict[str, Any]:

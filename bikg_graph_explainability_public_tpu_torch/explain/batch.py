@@ -44,8 +44,12 @@ fold_in(PRNGKey(seed), repeat), original query position)``, then
 surrogate's initialisation.  So the same seed gives the JAX package's
 ``explain_many`` scores.
 
-Not ported: ``mesh=`` (raises ``NotImplementedError``).  A typed model
-that is not a HeteroGNN (:class:`..models.gnn.RGCNNodeModel`) raises
+``mesh=`` (a ``torch.distributed`` :class:`DeviceMesh`) splits the query
+axis over the mesh's first axis: every rank builds the same stacks and
+launch plans for all queries, runs the rows of its query block (Q padded to
+a multiple of the axis size by repeating the last query, as in JAX), and an
+``all_gather`` of the weights gives every rank all Q explanations.  A typed
+model that is not a HeteroGNN (:class:`..models.gnn.RGCNNodeModel`) raises
 ``TypeError``, as the JAX package's ``explain_many`` does.
 """
 
@@ -65,6 +69,7 @@ from ..models.fast_hetero import (
     dense_hetero_gcn_layers, dense_hetero_mask_scales, is_hetero_gcn,
 )
 from ..models.gnn import GCNNodeModel, HeteroGNN
+from ..models.layers import refuse_row_sharded
 from ..ops.khop import Subgraph, extract_khop_subgraph
 from ..utils import prng
 from ..utils.padding import round_up_pow2
@@ -598,17 +603,26 @@ def _run_stack(kind: str, model_def, problem: str, entry: dict, t: int,
 
 
 def _check_inputs(model, graph: Graph, mesh) -> None:
-    """Refuse ``mesh=`` (not ported), a typed model that is not a
+    """Refuse a ``mesh`` that is not a :class:`DeviceMesh` of the model's
+    device type, a tensor-parallel model (the formulations read whole
+    weights), a typed model that is not a
     :class:`..models.gnn.HeteroGNN` (the JAX package's coo runner calls
     such a model without its type vectors, so its ``explain_many`` raises
     ``TypeError`` there; this adds no feature the JAX package lacks), and
     a hetero graph whose type ids name no type of the model (ids are
     positions in the model's ``node_type_names`` and ``relations``)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "explain_many(mesh=...) needs parallel/, which is not ported yet"
-        )
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                f"mesh must be a torch.distributed DeviceMesh (parallel.make_mesh), "
+                f"not {type(mesh).__name__}"
+            )
+        if mesh.device_type != model.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot run a model on {model.device}")
     mdef = model.model_def
+    refuse_row_sharded(mdef, "explain_many")
     if model._typed and not isinstance(mdef, HeteroGNN):
         raise TypeError(
             f"explain_many does not serve {type(mdef).__name__}: of the typed models it "
@@ -659,7 +673,8 @@ def explain_many(
     then depend only on its own bucket (``False``: one stack padded to the
     largest).  A hetero model takes the graph's type ids as positions in
     its ``node_type_names`` and ``relations`` (``ValueError`` outside
-    them).  ``mesh`` raises ``NotImplementedError``.
+    them).  ``mesh``: a ``torch.distributed`` :class:`DeviceMesh` whose
+    first axis splits the query axis; every rank returns all Q frames.
     """
     exs = _explain_many(
         model, graph, queries, params_cfg, names, times, chunk, mesh,
@@ -725,7 +740,7 @@ def _explain_many(
         ws, build = _explain_many_stacked(
             model, graph, [queries[i] for i in idxs], params_cfg, names, times,
             chunk, pathways, pathway_names, problem, subs=subs_w,
-            orig_pos=orig_pos, fp=fp, timer=timer,
+            orig_pos=orig_pos, fp=fp, timer=timer, mesh=mesh,
         )
         launches.append((idxs, ws, build))
 
@@ -767,8 +782,10 @@ def _explain_many_stacked(
     orig_pos: Optional[np.ndarray],
     fp: tuple,
     timer=None,
+    mesh=None,
 ):
-    """Enqueue every repeat of one stack of queries.
+    """Enqueue every repeat of one stack of queries (with a ``mesh``, this
+    rank's block of them, then the ``all_gather`` of every block).
 
     Returns ``(weights, build)``: the per-repeat ``[Q, W]`` weights, still
     on the device, and ``build(fetched)``, which turns their host copies
@@ -807,13 +824,14 @@ def _explain_many_stacked(
         0 if pathway_names is None else id(pathway_names),
         0 if names is None else id(names),
         None if orig_pos is None else tuple(int(p) for p in orig_pos),
+        0 if mesh is None else id(mesh),
     )
     entry = _plan_cache_get(plan_key, graph, model_def, pathways, names, fp)
     if entry is None:
         with _phase(timer, "plan_build", model.device):
             entry = _build_launch_plan(
                 model, graph, queries, params_cfg, names, times, chunk,
-                pathways, pathway_names, problem, subs, orig_pos, kind, n_hops, fp,
+                pathways, pathway_names, problem, subs, orig_pos, kind, n_hops, fp, mesh,
             )
         _plan_cache_put(plan_key, graph, model_def, pathways, names, fp, entry)
 
@@ -821,6 +839,10 @@ def _explain_many_stacked(
         _run_stack(kind, model_def, problem, entry, t, epochs, lr, l1, wd, timer)
         for t in range(times)
     ]
+    if mesh is not None:
+        from ..parallel.sharding import gather_rows
+
+        weights_reps = [gather_rows(w, mesh, mesh.mesh_dim_names[0]) for w in weights_reps]
 
     def build(fetched):
         return _assemble(fetched, entry)
@@ -868,10 +890,13 @@ def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _build_launch_plan(
     model, graph, queries, params_cfg, names, times, chunk,
-    pathways, pathway_names, problem, subs, orig_pos, kind, n_hops, fp,
+    pathways, pathway_names, problem, subs, orig_pos, kind, n_hops, fp, mesh=None,
 ):
     """The device-ready launch plan of one stack of queries: every
-    pure-function-of-inputs stage of :func:`_explain_many_stacked`."""
+    pure-function-of-inputs stage of :func:`_explain_many_stacked`.  With a
+    ``mesh``, the stack is built for all queries and this rank uploads its
+    block of rows (never a smaller stack of its own: its padding would
+    change the draws)."""
     is_edge = "edge" in problem
     is_graph = "graph" in problem
     # only the coo route reads type ids (the hetero_dense one has them in
@@ -950,6 +975,13 @@ def _build_launch_plan(
     while n_masks % chunk:
         chunk -= 1
 
+    take = slice(None)
+    if mesh is not None:
+        # Q padded to a multiple of the axis size by repeating the last query
+        size, me = mesh.size(0), mesh.get_local_rank(0)
+        q_blk = -(-qn // size)
+        take = np.minimum(np.arange(me * q_blk, (me + 1) * q_blk), qn - 1)
+
     base = {"x": st.xs, "q": st.qidx, "nv": st.nvalid, "ne": n_elem_arr, "bs": bs_real}
     if kind == "dense":
         base["adj"] = st.adjs
@@ -968,11 +1000,11 @@ def _build_launch_plan(
         "n_masks": n_masks,
         "chunk": chunk,
         "width": width,
-        "dev": {k: _upload(v, dev) for k, v in base.items()},
-        "keys": [_upload(kd_all[t].astype(np.int64), dev) for t in range(times)],
+        "dev": {k: _upload(v[take], dev) for k, v in base.items()},
+        "keys": [_upload(kd_all[t][take].astype(np.int64), dev) for t in range(times)],
         # packbits: 8 mask bits per shipped byte (see _unpack_mask_bits)
         "m_dev": None if mask_stacks is None else [
-            _upload(np.packbits(np.stack(mask_stacks[t]), axis=-1), dev)
+            _upload(np.packbits(np.stack(mask_stacks[t]), axis=-1)[take], dev)
             for t in range(times)
         ],
     }

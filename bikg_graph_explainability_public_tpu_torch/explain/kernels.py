@@ -20,6 +20,30 @@ def _log_binom(n: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.lgamma(n + 1.0) - torch.lgamma(k + 1.0) - torch.lgamma(n - k + 1.0)
 
 
+def log_shap_weights(mask: torch.Tensor, num_valid_columns: Optional[int] = None):
+    """``(log-kernel, valid)`` per row of a [..., M, S] boolean mask: the
+    unnormalised log KernelSHAP weight and whether the row has one
+    (``1 <= k <= S_eff - 1``)."""
+    s_eff = num_valid_columns if num_valid_columns is not None else mask.shape[-1]
+    k = mask.sum(dim=-1).to(torch.float32)
+    n = torch.tensor(float(s_eff - 1), dtype=torch.float32, device=mask.device)
+    logw = (
+        torch.log(n)
+        - _log_binom(n + 1.0, k)
+        - torch.log(torch.clamp(n + 1.0 - k, min=1e-30))
+        - torch.log(torch.clamp(k, min=1e-30))
+    )
+    return logw, (k >= 1.0) & (k <= n)
+
+
+def log_weight_max(logw: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The largest finite valid log weight of each leading index
+    ([..., 1]; -1e30 where there is none): :func:`shap_kernel`'s
+    normaliser."""
+    safe = torch.where(valid & torch.isfinite(logw), logw, torch.full_like(logw, -1e30))
+    return safe.max(dim=-1, keepdim=True).values
+
+
 def shap_kernel(
     mask: torch.Tensor,
     num_valid_columns: Optional[int] = None,
@@ -33,19 +57,9 @@ def shap_kernel(
     k == 0 or k == S_eff get weight 0.  ``num_valid_columns``: actual element
     count S_eff when the mask is padded wider (padding columns False).
     """
-    s_eff = num_valid_columns if num_valid_columns is not None else mask.shape[-1]
-    k = mask.sum(dim=-1).to(torch.float32)
-    n = torch.tensor(float(s_eff - 1), dtype=torch.float32, device=mask.device)
-    logw = (
-        torch.log(n)
-        - _log_binom(n + 1.0, k)
-        - torch.log(torch.clamp(n + 1.0 - k, min=1e-30))
-        - torch.log(torch.clamp(k, min=1e-30))
-    )
-    valid = (k >= 1.0) & (k <= n)
+    logw, valid = log_shap_weights(mask, num_valid_columns)
     if normalized:
-        safe = torch.where(valid & torch.isfinite(logw), logw, torch.full_like(logw, -1e30))
-        logw = logw - safe.max(dim=-1, keepdim=True).values
+        logw = logw - log_weight_max(logw, valid)
     w = torch.exp(logw)
     return torch.where(valid, w, torch.zeros_like(w))
 

@@ -130,6 +130,14 @@ def host_view(graph: Graph) -> HostView:
     return graph.host
 
 
+def seed_host_view(graph: Graph, **arrays: np.ndarray) -> Graph:
+    """Pre-populate ``graph``'s :class:`HostView` with the numpy arrays it
+    was just built from, so later host-side planning never copies them back
+    from the device.  Returns ``graph`` for chaining."""
+    graph.host._cache.update(arrays)
+    return graph
+
+
 def graph_from_numpy(
     device: torch.device,
     *,
@@ -156,8 +164,7 @@ def graph_from_numpy(
     t["senders"] = t["senders"].long()
     t["receivers"] = t["receivers"].long()
     g = Graph(**t, num_nodes=int(num_nodes), num_edges=int(num_edges), typed=bool(typed))
-    g.host._cache.update(arrays)
-    return g
+    return seed_host_view(g, **arrays)
 
 
 def from_arrays(

@@ -38,7 +38,7 @@ from ..runtime import native
 from ..utils.device import resolve_device
 from ..utils.padding import round_up_pow2
 from .gnn import GCNNodeModel
-from .layers import relu
+from .layers import refuse_row_sharded, relu
 
 #: below this padded node count, use the dense-adjacency formulation
 DENSE_THRESHOLD = 4096
@@ -280,6 +280,7 @@ class FastBatchedGCN:
     ):
         if backend not in ("xla", "pallas"):
             raise ValueError(f"unknown backend {backend!r}; 'xla' or 'pallas'")
+        refuse_row_sharded(model_def, "FastBatchedGCN")
         self.backend = backend
         self.device = resolve_device(device)
         if graph.device != self.device:

@@ -49,7 +49,7 @@ from ..ops.spmm import gather_sum_batched_separable, weighted_gather_sum_batched
 from ..utils.device import resolve_device
 from .fast_gcn import _PLAN_DEG_ENTRY_CAP, _ball_geometry, _chunks, _pad16
 from .gnn import HeteroGNN
-from .layers import GATConv, GCNConv, relu
+from .layers import GATConv, GCNConv, refuse_row_sharded, relu
 
 
 class HeteroQueryPlan(NamedTuple):
@@ -239,6 +239,7 @@ class FastBatchedHeteroGCN:
     def __init__(self, model_def: HeteroGNN, graph, restrict: bool = True, device=None):
         if not is_hetero_gcn(model_def):
             raise TypeError("the fast hetero engine needs a HeteroGNN of default GCNConvs")
+        refuse_row_sharded(model_def, "FastBatchedHeteroGCN")
         self.device = resolve_device(device)
         if graph.device != self.device:
             raise ValueError(f"graph is on {graph.device}, engine on {self.device}")
@@ -711,6 +712,7 @@ class FastBatchedHeteroGAT:
             raise TypeError("the fast hetero GAT engine needs a HeteroGNN of GATConvs")
         if any(c.add_self_loops for layer in model_def.conv_layers for c in layer.values()):
             raise TypeError("the fast hetero GAT engine does not serve add_self_loops GATConvs")
+        refuse_row_sharded(model_def, "FastBatchedHeteroGAT")
         self.device = resolve_device(device)
         if graph.device != self.device:
             raise ValueError(f"graph is on {graph.device}, engine on {self.device}")

@@ -54,6 +54,18 @@ def _glorot(shape, generator: Optional[torch.Generator]) -> nn.Parameter:
     return _uniform(shape, math.sqrt(6.0 / (fan_in + fan_out)), generator)
 
 
+def refuse_row_sharded(model_def: nn.Module, reader: str) -> None:
+    """Raise ``ValueError`` where a module of ``model_def`` holds only a row
+    block of its weight (``parallel.shard_params_model_axis``): ``reader``
+    reads weights directly and would compute on the block.  Such a model
+    runs on its own forward, whose hooks gather the blocks' outputs."""
+    if any(getattr(m, "row_sharded", False) for m in model_def.modules()):
+        raise ValueError(
+            f"{reader} reads whole weights, but the model is tensor-parallel (row-sharded "
+            "modules); run it through its own forward (Model(..., fast=False), Model.infer)"
+        )
+
+
 class Linear(nn.Module):
     """Dense layer, torch layout: weight [out, in], y = x W^T + b."""
 

@@ -161,3 +161,14 @@ def ell_aggregate_shared(coeff_b: torch.Tensor, gathered: torch.Tensor) -> torch
     """
     out = torch.bmm(coeff_b.transpose(0, 1).float(), gathered.float())  # [N, B, F]
     return out.transpose(0, 1)
+
+
+def ell_aggregate_per_sample(
+    coeff_b: torch.Tensor, feats_b: torch.Tensor, table: NeighborTable
+) -> torch.Tensor:
+    """Batched aggregation when features differ per sample (layer >= 2).
+
+    coeff_b: [B, N, K]; feats_b: [B, N_src, F] -> [B, N, F] (float32).
+    """
+    gathered = feats_b[:, table.nbr.long()]  # [B, N, K, F]
+    return torch.einsum("bnk,bnkf->bnf", coeff_b.float(), gathered.float())

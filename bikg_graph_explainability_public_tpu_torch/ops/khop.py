@@ -13,10 +13,32 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..graph import Graph, graph_from_numpy, host_view
 from ..runtime import native
 from ..utils.padding import pad_budget
+
+
+def khop_reachable(
+    senders: torch.Tensor,
+    receivers: torch.Tensor,
+    edge_valid: torch.Tensor,
+    query,
+    n_hops: int,
+    num_nodes: int,
+) -> torch.Tensor:
+    """Boolean mask of nodes within ``n_hops`` (following edge direction
+    towards the query), query included, on the edges' device: each hop
+    scatters the reached receivers' mark to their senders (a max)."""
+    reach = torch.zeros(num_nodes, dtype=torch.int32, device=senders.device)
+    reach[query] = 1
+    valid = edge_valid.to(torch.int32)
+    snd = senders.long()
+    for _ in range(n_hops):
+        hot = reach[receivers.long()] * valid
+        reach = torch.maximum(reach, torch.zeros_like(reach).scatter_reduce(0, snd, hot, "amax"))
+    return reach.to(torch.bool)
 
 
 class Subgraph(NamedTuple):

@@ -121,7 +121,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    128)) 2 node queries on the 20k / 160k graph with seeded edge types;
    then ``import_any`` on the three models' state dicts in PyG's layout,
    a forward each held against the factory's model.  The first query of
-   each model and the ``explain_many`` call are held against the CPU.
+   each model and the ``explain_many`` call are held against the CPU;
+15. the distributed path (``parallel/``, no hand kernel) at world size 1:
+   ``initialize_distributed`` on a file store in a temporary directory and
+   ``make_mesh(1)`` on the card, so NCCL (no ``NCCL_SOCKET_IFNAME`` is
+   needed: one rank's bootstrap finds ``lo``), every sharded call held
+   against its unsharded counterpart: (a) 2 node queries of GCN-128x2 on
+   the 20k / 160k graph through ``Explainer`` with a ``ShardedModel``
+   against ``Model`` (``rtol=1e-3, atol=1e-5``, both walls); (b)
+   ``halo_masked_outputs`` on the graph problem of the 100k / 1M graph at
+   B = 16 (its ``[E, B, C]`` messages are 8.2 GB a layer) against
+   ``FastBatchedGCN``'s ELL tier on the same masks (``rtol=1e-4,
+   atol=1e-5``), the time a mask of each and the peak memory; (c) a hetero
+   node query (bench.py's hetero explanation graph, a HeteroGNN of
+   GCNConvs) through ``ShardedModel``'s hetero halo against ``Model``; (d)
+   ``explain_many(mesh=)`` on bench.py's 20k / 160k workload (16 queries,
+   Shapley) bit for bit against ``mesh=None``, first and hot walls; (e)
+   ``sharded_query_outputs`` and one ``explain_training_step`` against the
+   unsharded calls.  Every kernel's launch count on the sharded calls is 0;
+   only (b)'s unsharded reference launches 2.3 (3 calls, one each).  The
+   group is destroyed at the end of the phase.
 
 The node path (4) also prints ``Explainer._explain``'s diagnostics (its
 phase split) for each 20k / 160k query.
@@ -935,7 +954,7 @@ def _check_against_cpu(ex_gpu, ex_cpu, label):
     # last-bit differences of the forwards
     if not np.allclose(ex_gpu.mean, ex_cpu.mean, rtol=1e-3, atol=1e-5):
         raise AssertionError(
-            f"{label}: card and CPU disagree, max abs diff "
+            f"{label}: the run and its reference disagree, max abs diff "
             f"{np.abs(ex_gpu.mean - ex_cpu.mean).max():.3e}"
         )
     if ex_gpu.pathway_scores is not None and not np.allclose(
@@ -1026,7 +1045,8 @@ def _hold_many(got, want, label) -> float:
 
 
 def _identical(got, want, label) -> None:
-    """Two calls' explanations bit for bit (two hot calls run one plan)."""
+    """Two calls' explanations bit for bit (two hot calls run one plan, as
+    do ``explain_many`` with and without a one-rank mesh)."""
     import numpy as np
 
     for i, (g, w) in enumerate(zip(got, want)):
@@ -1034,7 +1054,7 @@ def _identical(got, want, label) -> None:
         if g.pathway_scores is not None:
             same = same and np.array_equal(g.pathway_scores, w.pathway_scores)
         if not same:
-            raise AssertionError(f"{label} query {i}: two hot calls of one plan differ")
+            raise AssertionError(f"{label} query {i}: the two calls differ")
 
 
 def phase_explain_many(dev, config) -> None:
@@ -1229,6 +1249,13 @@ def profile_forwards(run, wall_s: float, label: str) -> None:
         run()
         torch.cuda.synchronize()
     log_device_profile(prof, wall_s, label)
+
+
+def expect_delta(before: dict, expected: dict, label: str) -> None:
+    """:func:`expect_counts` on the launches made since ``before`` (a
+    :func:`read_counts`)."""
+    now = read_counts()
+    expect_counts({k: now[k] - before[k] for k in now}, expected, label)
 
 
 def expect_counts(counts: dict, expected: dict, label: str) -> None:
@@ -2762,6 +2789,197 @@ def phase_hetero_ell(dev, config, rec_23: dict, rec_24: dict) -> tuple:
     return launches_23, launches_24
 
 
+#: the masks of phase 15's halo graph problem: its [E, B, C] messages on
+#: the 100k / 1M graph, 1M x 16 x 128 float32, are 8.2 GB a layer
+HALO_B = 16
+
+
+def phase_distributed(dev, config) -> int:
+    """Phase 15: ``parallel/`` at world size 1 on the card, over NCCL
+    (``initialize_distributed`` on a file store, ``make_mesh(1)``), every
+    sharded call held against its unsharded counterpart; returns the
+    launches of kernel 2.3 made by (b)'s unsharded reference, the only
+    kernel launches of the phase."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from bikg_graph_explainability_public_tpu_torch import parallel as tpar
+    from bikg_graph_explainability_public_tpu_torch.parallel.mesh import initialize_distributed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        initialize_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            mesh = tpar.make_mesh(1)
+            init_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            # NCCL makes its communicator at the first collective
+            dist.all_reduce(torch.zeros(1, device=dev))
+            torch.cuda.synchronize()
+            log(f"distributed: {dist.get_backend()} group of {dist.get_world_size()}, mesh "
+                f"{mesh.device_type} {tuple(mesh.shape)} {mesh.mesh_dim_names}, "
+                f"{init_s:.2f} s; the first collective (the communicator) "
+                f"{time.perf_counter() - t0:.2f} s")
+            return _distributed_cases(dev, config, mesh)
+        finally:
+            dist.destroy_process_group()
+
+
+def _distributed_cases(dev, config, mesh) -> int:
+    import numpy as np
+    import torch
+    from bikg_graph_explainability_public_tpu_torch import parallel as tpar
+    from bikg_graph_explainability_public_tpu_torch.explain import batch
+    from bikg_graph_explainability_public_tpu_torch.explain.explainer import Explainer
+    from bikg_graph_explainability_public_tpu_torch.graph import from_arrays
+    from bikg_graph_explainability_public_tpu_torch.models.fast_gcn import FastBatchedGCN
+
+    def explain(model, feat, ei, names, q, **kw):
+        t0 = time.perf_counter()
+        ex = Explainer(feat, ei, model, config, names, device=dev, **kw)._explain(q, times=1)
+        torch.cuda.synchronize()
+        return ex, time.perf_counter() - t0
+
+    # (a) node queries through the Explainer, ShardedModel against Model
+    feat, ei, rng = random_graph(NODE_N, NODE_E, seed=5)
+    names = [str(i) for i in range(NODE_N)]
+    model, _ = gcn_128x2(seed=0, device=dev)
+    sharded = tpar.ShardedModel(model.model_def, None, mesh)
+    for q in (str(int(q)) for q in rng.integers(0, NODE_N, 2)):
+        before = read_counts()
+        got, wall = explain(sharded, feat, ei, names, q)
+        expect_delta(before, {}, f"distributed (a) ShardedModel query {q}")
+        want, plain_wall = explain(model, feat, ei, names, q)
+        diff = _check_against_cpu(got, want, f"distributed (a) query {q}")
+        log(f"distributed (a) 20k/160k GCN-128x2 node query {q} through ShardedModel: "
+            f"{len(got.names)} elements, wall {wall:.3f} s (Model {plain_wall:.3f} s), "
+            f"max |sharded - unsharded| {diff:.3e} (rtol 1e-3, atol 1e-5) ok")
+
+    # (b) the halo graph problem on the 100k / 1M graph against the ELL tier
+    feat, ei, _ = random_graph(BIG_N, BIG_E, seed=0)
+    g = from_arrays(feat, ei, device=dev)
+    model, _ = gcn_128x2(seed=0, device=dev)
+    t0 = time.perf_counter()
+    e = g.num_edges
+    part = tpar.build_halo_partition(g.host.senders[:e], g.host.receivers[:e], g.n_pad, 1)
+    plan_s = time.perf_counter() - t0
+    x = tpar.pad_nodes(g.x, part)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    masks = torch.rand((HALO_B, g.n_pad), generator=gen, device=dev) < 0.5
+    m_loc = tpar.pad_nodes(masks.T, part).T
+
+    def halo():
+        out = tpar.halo_masked_outputs(model, x, m_loc, part, mesh, problem="graph_prediction",
+                                       num_nodes=g.num_nodes)
+        torch.cuda.synchronize()
+        return out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = read_counts()
+    t0 = time.perf_counter()
+    got = halo()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(2):
+        halo()
+    halo_s = (time.perf_counter() - t0) / 2
+    expect_delta(before, {}, "distributed (b) halo graph problem")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    engine = FastBatchedGCN(model.model_def, g, device=dev)
+
+    def ell():
+        out = engine.query_outputs(masks, None, "graph_prediction", chunk_size=HALO_B)
+        torch.cuda.synchronize()
+        return out
+
+    before = read_counts()
+    want = ell()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        ell()
+    ell_s = (time.perf_counter() - t0) / 2
+    # layer 2 of each of the 3 calls: one chunk, one launch
+    ref_launches = 3 * (len(model.model_def.conv) - 1)
+    expect_delta(before, {"gather_sum_static": ref_launches},
+                 "distributed (b) unsharded reference (FastBatchedGCN, ELL tier)")
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+        raise AssertionError(
+            f"distributed (b): halo and ELL tier differ by {(got - want).abs().max().item():.3e}")
+    log(f"distributed (b) halo_masked_outputs graph problem, 100k/1M GCN-128x2, B={HALO_B}: "
+        f"{halo_s * 1e3 / HALO_B:.3f} ms a mask ({halo_s:.4f} s a call; first call "
+        f"{first_s:.3f} s; plan {plan_s:.3f} s on the host), FastBatchedGCN's ELL tier "
+        f"{ell_s * 1e3 / HALO_B:.3f} ms a mask, ratio {halo_s / ell_s:.2f}; peak "
+        f"{peak_gb:.2f} GB; max |halo - ELL| {(got - want).abs().max().item():.3e} "
+        f"(rtol 1e-4, atol 1e-5) ok")
+    del engine, x, m_loc, part, g
+
+    # (c) a hetero node query through ShardedModel's hetero halo
+    n_per, e_per, seed = HETERO_SMALL
+    feat, ei, rng = hetero_graph(n_per, e_per, seed)
+    names = {t: [f"{t}{i}" for i in range(n_per)] for t in ("a", "b")}
+    model = hetero_model(["a", "b"], HETERO_RELS, HETERO_F, (HIDDEN,), (HIDDEN, 64), seed, dev)
+    sharded = tpar.ShardedModel(model.model_def, None, mesh)
+    q = f"a{int(rng.integers(0, n_per))}"
+    before = read_counts()
+    got, wall = explain(sharded, feat, ei, names, q, element_type="a")
+    expect_delta(before, {}, "distributed (c) hetero ShardedModel")
+    want, plain_wall = explain(model, feat, ei, names, q, element_type="a")
+    diff = _check_against_cpu(got, want, f"distributed (c) hetero query {q}")
+    log(f"distributed (c) hetero 8000/72k conv (128,) node query {q} through ShardedModel: "
+        f"{len(got.names)} elements, wall {wall:.3f} s (Model {plain_wall:.3f} s), "
+        f"max |sharded - unsharded| {diff:.3e} ok")
+
+    # (d) explain_many over the mesh against mesh=None
+    feat, ei, rng = random_graph(NODE_N, NODE_E, seed=5)
+    queries = [int(q) for q in rng.integers(0, NODE_N, EXPLAIN_Q)]
+    model, _ = gcn_128x2(seed=0, device=dev, n_conv=1)
+    g = from_arrays(feat, ei, pad_mode="exact", device=dev)
+    walls = {}
+    runs = {}
+    before = read_counts()
+    for label, kw in (("mesh", dict(mesh=mesh)), ("no mesh", {})):
+        for call in ("first", "hot"):
+            t0 = time.perf_counter()
+            runs[label] = batch._explain_many(model, g, queries, CFG_FULL, **kw)
+            torch.cuda.synchronize()
+            walls[label, call] = time.perf_counter() - t0
+    expect_delta(before, {}, "distributed (d) explain_many")
+    _identical(runs["mesh"], runs["no mesh"], "distributed (d) explain_many(mesh=)")
+    log(f"distributed (d) explain_many 20k/160k GCN-128 Q={EXPLAIN_Q} Shapley: mesh=mesh "
+        f"first {walls['mesh', 'first']:.3f} s, hot {walls['mesh', 'hot']:.4f} s; mesh=None "
+        f"first {walls['no mesh', 'first']:.3f} s, hot {walls['no mesh', 'hot']:.4f} s; "
+        f"every query bit for bit ok")
+
+    # (e) the data-parallel forwards and one training step
+    model, _ = gcn_128x2(seed=0, device=dev)
+    g = from_arrays(feat, ei, device=dev)
+    q = queries[0]
+    masks = torch.rand((64, g.n_pad), generator=gen, device=dev) < 0.5
+    before = read_counts()
+    got = tpar.sharded_query_outputs(model, g, masks, "node_prediction", q, mesh)
+    want = model.perturbed_query_outputs(g, masks, "node_prediction", q, chunk_size=64)
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+        raise AssertionError("distributed (e): sharded_query_outputs differs from the model's")
+    w0 = torch.rand((g.n_pad,), generator=gen, device=dev) * 0.01
+    z = torch.zeros_like(w0)
+    t = torch.zeros((), device=dev)
+    outs = [
+        tpar.explain_training_step(model, g, "node_prediction", q, NODE_N, mesh=m)(
+            w0, z, z, t, tpar.shard_batch(masks, mesh) if m is not None else masks)
+        for m in (mesh, None)
+    ]
+    expect_delta(before, {}, "distributed (e) sharded_query_outputs, training step")
+    for a, b in zip(*outs):
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-7):
+            raise AssertionError("distributed (e): the training step differs from the unsharded")
+    w_diff = (outs[0][0] - outs[1][0]).abs().max().item()
+    log(f"distributed (e) sharded_query_outputs (64 masks, query {q}) and explain_training_step "
+        f"held against the unsharded calls: max |diff| {(got - want).abs().max().item():.3e} / "
+        f"{w_diff:.3e}, loss {outs[0][4].item():.6f} ok")
+    return ref_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2832,6 +3050,11 @@ def main() -> int:
     phase_remaining_families(dev, config)
     expect_counts(read_counts(), {}, "hetero GAT / SAGE and RGCN (plans, generic forward, typed coo)")
     done("hetero GAT / SAGE and RGCN")
+    reset_counts()
+    ref_23 = phase_distributed(dev, config)
+    expect_counts(read_counts(), {"gather_sum_static": ref_23},
+                  "distributed path (0 on the sharded calls; 2.3 only in (b)'s reference)")
+    done("distributed (world size 1, NCCL)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     records = [rec_21, rec_op, rec_22, rec_23, rec_24, rec_tr] + ladder + [rec_29, rec_flag]

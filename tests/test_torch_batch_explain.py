@@ -342,9 +342,11 @@ def test_in_place_mutation_of_cached_pathways_is_recomputed(toy):
 
 
 def test_mesh_and_hetero_models_are_not_ported(toy):
-    """``mesh=`` needs ``parallel/``, which is not ported.  Hetero models
-    are served (``tests/test_torch_hetero_batch_explain.py``)."""
-    with pytest.raises(NotImplementedError, match="parallel"):
+    """``mesh=`` takes a ``torch.distributed`` DeviceMesh and refuses
+    anything else with ``TypeError`` before any work (a mesh runs in
+    ``tests/test_torch_parallel.py``).  Hetero models are served
+    (``tests/test_torch_hetero_batch_explain.py``)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tbatch.explain_many(toy["tm"], toy["tg"], [10], toy["cfg"], mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tbatch._explain_many(toy["tm"], toy["tg"], [10, 3], toy["cfg"], mesh=object())

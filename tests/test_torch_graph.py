@@ -132,6 +132,28 @@ def test_khop_equal(query, hops, pad_mode):
     np.testing.assert_array_equal(ts.parent_edge_mask, np.asarray(js.parent_edge_mask))
 
 
+@pytest.mark.parametrize("hops", [0, 1, 2, 3])
+@pytest.mark.parametrize("query", [0, 10, 33])
+def test_khop_reachable_equal(query, hops):
+    """The device reach (repeated scatter-max), padding edges masked out."""
+    jg, tg = _graphs(n=36, e=116, seed=0)
+    want = jkhop.khop_reachable(jg.senders, jg.receivers, jg.edge_mask, query, hops, jg.n_pad)
+    got = tkhop.khop_reachable(tg.senders, tg.receivers, tg.edge_mask, query, hops, tg.n_pad)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_seed_host_view_serves_the_seeded_arrays():
+    """The host view reads seeded arrays instead of copying from the
+    device, as the JAX package's does; the graph is returned."""
+    jg, tg = _graphs(n=20, e=50, seed=3)
+    marker = np.arange(tg.n_pad, dtype=np.int32)[::-1].copy()
+    assert tgraph.seed_host_view(tg, node_type=marker) is tg
+    assert jgraph.seed_host_view(jg, node_type=marker) is jg
+    assert tgraph.host_view(tg).node_type is marker
+    np.testing.assert_array_equal(tgraph.host_view(tg).node_type, jgraph.host_view(jg).node_type)
+    np.testing.assert_array_equal(tg.node_type.numpy(), 0)  # the device array is untouched
+
+
 def test_khop_isolated_query_gets_self_loop():
     feat = np.zeros((5, 2), np.float32)
     ei = np.array([[0, 1], [1, 2]])

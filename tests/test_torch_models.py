@@ -204,6 +204,23 @@ def test_ell_coeffs_and_shared_aggregate_match_jax(seed):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
+def test_ell_per_sample_aggregate_matches_jax(seed):
+    """Layer >= 2: each sample gathers its own features."""
+    feat, ei, _ = make_graph(n=50, f=4, e=260, seed=seed)
+    jg = px.from_arrays(feat, ei)
+    tg = tgraph.from_arrays(feat, ei, device="cpu")
+    jt, tt = jell.build_neighbor_table(jg), tell.build_neighbor_table(tg)
+    rng = np.random.default_rng(seed + 10)
+    m = (rng.random((3, jg.n_pad)) > 0.4).astype(np.float32)
+    jc, _ = jax.vmap(lambda row: jell.gcn_coeffs_from_node_mask(jt, row))(jnp.asarray(m))
+    tc, _ = tell.gcn_coeffs_from_node_mask(tt, _t(m))
+    h = rng.standard_normal((3, jg.n_pad, 5)).astype(np.float32)
+    want = jell.ell_aggregate_per_sample(jc, jnp.asarray(h), jt)
+    got = tell.ell_aggregate_per_sample(tc, _t(h), tt)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
 def test_ell_edge_coeffs_match_jax(seed):
     feat, ei, _ = make_graph(n=50, f=4, e=260, seed=seed)
     jg = px.from_arrays(feat, ei)
