@@ -55,7 +55,6 @@ model that is not a HeteroGNN (:class:`..models.gnn.RGCNNodeModel`) raises
 
 from __future__ import annotations
 
-import contextlib
 from collections import OrderedDict
 from functools import lru_cache
 from typing import List, Optional, Sequence
@@ -71,7 +70,7 @@ from ..models.fast_hetero import (
 from ..models.gnn import GCNNodeModel, HeteroGNN
 from ..models.layers import refuse_row_sharded
 from ..ops.khop import Subgraph, extract_khop_subgraph
-from ..utils import prng
+from ..utils import prng, profiling
 from ..utils.padding import round_up_pow2
 from .explainer import Explanation
 from .masks import MaskSampler, build_community_layout
@@ -260,6 +259,7 @@ def _subgraph_cached(graph: Graph, seed: int, n_hops: int) -> Subgraph:
     key = (id(graph), int(seed), int(n_hops))
     hit = _SUBGRAPH_CACHE.get(key)
     if hit is not None and hit[0] is graph:
+        profiling.count("subgraph_cache_hits", 1)
         return hit[1]
     sub = extract_khop_subgraph(graph, int(seed), n_hops, host_only=True)
     _SUBGRAPH_CACHE[key] = (graph, sub)
@@ -558,9 +558,10 @@ def _coo_outputs(model_def, problem: str, x, snd, rcv, evalid, ntype, etype, que
 
 
 def _phase(timer, name: str, device):
-    """``timer.phase(name, sync=device)``, or nothing without a timer."""
+    """``timer.phase(name, sync=device)``, or without a timer the span
+    ``name`` alone."""
     if timer is None:
-        return contextlib.nullcontext()
+        return profiling.span(name)
     return timer.phase(name, sync=device)
 
 
@@ -712,51 +713,57 @@ def _explain_many(
     :class:`..utils.profiling.PhaseTimer` that times the phases
     (``plan_build``, ``mask_draw``, ``forwards``,
     ``kernel_weights_and_training``, ``fetch_and_assembly``), synchronising
-    the device at each phase's exit.
+    the device at each phase's exit; without one they are spans alone, under
+    the root span ``many.call`` (:func:`..utils.profiling.recording`).
     """
-    _check_inputs(model, graph, mesh)
-    is_graph = "graph" in problem
-    n_hops = model.model_def.num_hops + 1
-    fp = (
-        _content_fp(pathways) if pathways is not None else 0,
-        _content_fp(names) if names is not None else 0,
-    )
-    if not size_buckets or is_graph or len(queries) <= 1:
-        work = [(list(range(len(queries))), None, None)]
-    else:
-        subs = [_subgraph_cached(graph, s, n_hops) for s in _seed_nodes(graph, queries, problem)]
-        buckets: dict = {}
-        for i, s in enumerate(subs):
-            key = (round_up_pow2(s.graph.num_nodes), max(round_up_pow2(s.graph.num_edges), 8))
-            buckets.setdefault(key, []).append(i)
-        if len(buckets) == 1:
-            work = [(list(range(len(queries))), subs, None)]
-        else:
-            work = [(idxs, [subs[i] for i in idxs], np.asarray(idxs, np.int64))
-                    for idxs in buckets.values()]
-
-    launches = []
-    for idxs, subs_w, orig_pos in work:
-        ws, build = _explain_many_stacked(
-            model, graph, [queries[i] for i in idxs], params_cfg, names, times,
-            chunk, pathways, pathway_names, problem, subs=subs_w,
-            orig_pos=orig_pos, fp=fp, timer=timer, mesh=mesh,
+    with profiling.span("many.call"):
+        _check_inputs(model, graph, mesh)
+        is_graph = "graph" in problem
+        n_hops = model.model_def.num_hops + 1
+        fp = (
+            _content_fp(pathways) if pathways is not None else 0,
+            _content_fp(names) if names is not None else 0,
         )
-        launches.append((idxs, ws, build))
+        if not size_buckets or is_graph or len(queries) <= 1:
+            work = [(list(range(len(queries))), None, None)]
+        else:
+            with profiling.span("bucket"):
+                subs = [_subgraph_cached(graph, s, n_hops)
+                        for s in _seed_nodes(graph, queries, problem)]
+                profiling.count("subgraphs", len(subs))
+            buckets: dict = {}
+            for i, s in enumerate(subs):
+                key = (round_up_pow2(s.graph.num_nodes), max(round_up_pow2(s.graph.num_edges), 8))
+                buckets.setdefault(key, []).append(i)
+            if len(buckets) == 1:
+                work = [(list(range(len(queries))), subs, None)]
+            else:
+                work = [(idxs, [subs[i] for i in idxs], np.asarray(idxs, np.int64))
+                        for idxs in buckets.values()]
 
-    results: list = [None] * len(queries)
-    with _phase(timer, "fetch_and_assembly", None):
-        fetched = _fetch([ws for _, ws, _ in launches])
-        for (idxs, _, build), f in zip(launches, fetched):
-            for i, ex in zip(idxs, build(f)):
-                results[i] = ex
-    return results
+        launches = []
+        for idxs, subs_w, orig_pos in work:
+            ws, build = _explain_many_stacked(
+                model, graph, [queries[i] for i in idxs], params_cfg, names, times,
+                chunk, pathways, pathway_names, problem, subs=subs_w,
+                orig_pos=orig_pos, fp=fp, timer=timer, mesh=mesh,
+            )
+            launches.append((idxs, ws, build))
+
+        results: list = [None] * len(queries)
+        with _phase(timer, "fetch_and_assembly", None):
+            fetched = _fetch([ws for _, ws, _ in launches])
+            for (idxs, _, build), f in zip(launches, fetched):
+                for i, ex in zip(idxs, build(f)):
+                    results[i] = ex
+        return results
 
 
 def _fetch(stacks: List[List[torch.Tensor]]) -> List[List[np.ndarray]]:
     """Every stack's per-repeat weights to the host in ONE copy."""
     flat = [w for reps in stacks for w in reps]
     host = torch.cat([w.reshape(-1) for w in flat]).cpu().numpy()
+    profiling.count("fetch_bytes", host.nbytes)
     out, at = [], 0
     for reps in stacks:
         got = []
@@ -868,7 +875,9 @@ def _plan_cache_get(plan_key, graph, model_def, pathways, names, fp):
         and (names is None or hit[3] is names)
         and hit[4] == fp
     ):
+        profiling.count("plan_cache_hits", 1)
         return hit[5]
+    profiling.count("plan_cache_misses", 1)
     return None
 
 
@@ -883,6 +892,8 @@ def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> device tensor; to a CUDA card through pinned memory
     and without waiting, so the host goes on while earlier work runs."""
     t = torch.from_numpy(np.ascontiguousarray(arr))
+    profiling.count("uploads", 1)
+    profiling.count("upload_bytes", t.nbytes)
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
@@ -905,10 +916,16 @@ def _build_launch_plan(
     dev = model.device
 
     if subs is None and not is_graph:
-        subs = [_subgraph_cached(graph, s, n_hops) for s in _seed_nodes(graph, queries, problem)]
-    st = _Stack(graph, _seed_nodes(graph, queries, problem), n_hops,
-                need_edges=kind == "coo", typed=typed, full_graph=is_graph, subs=subs,
-                rel_model=model.model_def if kind == "hetero_dense" else None)
+        with profiling.span("plan.extract"):
+            subs = [_subgraph_cached(graph, s, n_hops)
+                    for s in _seed_nodes(graph, queries, problem)]
+    with profiling.span("plan.stack"):
+        st = _Stack(graph, _seed_nodes(graph, queries, problem), n_hops,
+                    need_edges=kind == "coo", typed=typed, full_graph=is_graph, subs=subs,
+                    rel_model=model.model_def if kind == "hetero_dense" else None)
+        profiling.count("stack_bytes", sum(
+            a.nbytes for a in (st.xs, st.adjs, st.adjs_r, st.scopes, st.ntype, st.etype,
+                               st.snds, st.rcvs, st.evalid) if a is not None))
     qn = st.qn
     if orig_pos is None:
         orig_pos = np.arange(qn, dtype=np.int64)
@@ -991,6 +1008,19 @@ def _build_launch_plan(
         base.update(snd=st.snds, rcv=st.rcvs, ev=st.evalid)
         if typed:
             base.update(nt=st.ntype, et=st.etype)
+    with profiling.span("plan.upload"):
+        allocs = _host_allocs(dev)
+        uploaded = {
+            "dev": {k: _upload(v[take], dev) for k, v in base.items()},
+            "keys": [_upload(kd_all[t][take].astype(np.int64), dev) for t in range(times)],
+            # packbits: 8 mask bits per shipped byte (see _unpack_mask_bits)
+            "m_dev": None if mask_stacks is None else [
+                _upload(np.packbits(np.stack(mask_stacks[t]), axis=-1)[take], dev)
+                for t in range(times)
+            ],
+        }
+        if allocs is not None:
+            profiling.count("host_allocs", _host_allocs(dev) - allocs)
     return {
         "qn": qn,
         "parents": st.parent_edges if is_edge else st.parent_nodes,
@@ -1000,14 +1030,18 @@ def _build_launch_plan(
         "n_masks": n_masks,
         "chunk": chunk,
         "width": width,
-        "dev": {k: _upload(v[take], dev) for k, v in base.items()},
-        "keys": [_upload(kd_all[t][take].astype(np.int64), dev) for t in range(times)],
-        # packbits: 8 mask bits per shipped byte (see _unpack_mask_bits)
-        "m_dev": None if mask_stacks is None else [
-            _upload(np.packbits(np.stack(mask_stacks[t]), axis=-1)[take], dev)
-            for t in range(times)
-        ],
+        **uploaded,
     }
+
+
+def _host_allocs(device: torch.device) -> Optional[int]:
+    """The CUDA caching host allocator's count of pinned allocations
+    (``torch.cuda.host_memory_stats()["num_host_alloc"]``) while a recorder
+    listens on a card whose build has that count; else None."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if profiling.recorder() is None or device.type != "cuda" or stats is None:
+        return None
+    return stats().get("num_host_alloc")
 
 
 def _assemble(fetched: List[np.ndarray], entry: dict) -> List[Explanation]:
@@ -1039,23 +1073,24 @@ def _assemble_dfs(explanations: List[Explanation]):
     ``score`` frame of the communities."""
     import pandas as pd
 
-    cv_cols = pd.Index(["config_value_mean", "config_value_std"])
-    pw_cols = pd.Index(["score"])
-    dfs = []
-    for ex in explanations:
-        order = np.argsort(-ex.mean, kind="stable")
-        df = pd.DataFrame(
-            np.column_stack([ex.mean[order], ex.std[order]]),
-            columns=cv_cols,
-            index=pd.Index(np.asarray(ex.names)[order], name="name"),
-            copy=False,
-        )
-        if ex.pathway_names is None:
-            dfs.append(df)
-            continue
-        pw_df = pd.DataFrame(
-            ex.pathway_scores[:, None], columns=pw_cols,
-            index=pd.Index(ex.pathway_names, name="name"), copy=False,
-        )
-        dfs.append((df, pw_df))
-    return dfs
+    with profiling.span("many.frames"):
+        cv_cols = pd.Index(["config_value_mean", "config_value_std"])
+        pw_cols = pd.Index(["score"])
+        dfs = []
+        for ex in explanations:
+            order = np.argsort(-ex.mean, kind="stable")
+            df = pd.DataFrame(
+                np.column_stack([ex.mean[order], ex.std[order]]),
+                columns=cv_cols,
+                index=pd.Index(np.asarray(ex.names)[order], name="name"),
+                copy=False,
+            )
+            if ex.pathway_names is None:
+                dfs.append(df)
+                continue
+            pw_df = pd.DataFrame(
+                ex.pathway_scores[:, None], columns=pw_cols,
+                index=pd.Index(ex.pathway_names, name="name"), copy=False,
+            )
+            dfs.append((df, pw_df))
+        return dfs

@@ -37,6 +37,7 @@ from ..graph import (
 )
 from ..models.adapter import Model
 from ..ops.khop import extract_khop_subgraph
+from ..utils import profiling
 from ..utils.device import resolve_device
 from ..utils.profiling import PhaseTimer
 from ..utils.prng import repeat_split_key_data, root_key
@@ -282,7 +283,8 @@ class Explainer:
         of :meth:`run`)."""
         if "spmm_backend" in self.params:
             check_spmm_backend(self.params["spmm_backend"])
-        graph, info, names = self._prepare_graph()
+        with profiling.span("prepare_graph"):
+            graph, info, names = self._prepare_graph()
         pathways, pathway_names = self.pathways, self.pathway_names
         if pathways is not None:
             pointers = {}
@@ -303,10 +305,11 @@ class Explainer:
             # whose prediction the masked forwards read
             seed = int(graph.host.receivers[ind]) if is_edge else ind
             # one extra hop, mirroring the reference (data.py:328)
-            sub = extract_khop_subgraph(
-                graph, seed, n_hops + 1,
-                pad_mode=self.params.get("pad_mode", "pow2") or "pow2",
-            )
+            with profiling.span("extract"):
+                sub = extract_khop_subgraph(
+                    graph, seed, n_hops + 1,
+                    pad_mode=self.params.get("pad_mode", "pow2") or "pow2",
+                )
             sub_graph = sub.graph
             query = int(sub.query)
             names_array = np.array(names, dtype=str)
@@ -361,7 +364,8 @@ class Explainer:
                     self.params, self.problem, query, elements, batch_size, kd,
                     chunk_size=chunk,
                 )
-                config_vals = list(result.weights.cpu().numpy()[:, :elements])
+                with profiling.span("fetch"):
+                    config_vals = list(result.weights.cpu().numpy()[:, :elements])
             if return_diagnostics:
                 losses = list(result.losses.cpu().numpy())
                 best_epoch = [int(b) for b in result.best_epoch.cpu().numpy()]
@@ -373,15 +377,17 @@ class Explainer:
                         mask, self.model, sub_graph, self.params, self.problem,
                         query, elements, bsz, kd[i, 1], chunk_size=chunk,
                     )
-                    config_vals.append(result.weights.cpu().numpy()[:elements])
+                    with profiling.span("fetch"):
+                        config_vals.append(result.weights.cpu().numpy()[:elements])
                 if return_diagnostics:
                     losses.append(result.losses.cpu().numpy())
                     best_epoch.append(int(result.best_epoch))
 
-        mean_cv, std_cv = weight_stacking(config_vals)
-        pw_names = pw_scores = None
-        if pathways is not None:
-            pw_names, pw_scores = sub_pclass.aggregate_arrays(mean_cv, sub_pathway_inds)
+        with profiling.span("frames"):
+            mean_cv, std_cv = weight_stacking(config_vals)
+            pw_names = pw_scores = None
+            if pathways is not None:
+                pw_names, pw_scores = sub_pclass.aggregate_arrays(mean_cv, sub_pathway_inds)
         ex = Explanation(
             names=sub_names,
             mean=mean_cv,
@@ -410,12 +416,15 @@ class Explainer:
         ``losses`` ([epochs] arrays) and ``best_epoch``, ``phase_seconds``
         (``mask_sampling``, ``surrogate_training``), ``num_elements``,
         ``subgraph_nodes`` and ``subgraph_edges`` (the reference computes
-        the losses but discards them, ``explainer.py:502``).
+        the losses but discards them, ``explainer.py:502``).  The request
+        is the root span ``run.request`` (:mod:`..utils.profiling`).
         """
-        out = self._explain(element, times, return_diagnostics)
-        ex, diag = out if return_diagnostics else (out, None)
-        pathway_df = None
-        if ex.pathway_names is not None:
-            pathway_df = pathway_dataframe(ex.pathway_names, ex.pathway_scores)
-        frames = (config_val_dataframe(ex.mean, ex.std, ex.names), pathway_df)
+        with profiling.span("run.request"):
+            out = self._explain(element, times, return_diagnostics)
+            ex, diag = out if return_diagnostics else (out, None)
+            with profiling.span("frames"):
+                pathway_df = None
+                if ex.pathway_names is not None:
+                    pathway_df = pathway_dataframe(ex.pathway_names, ex.pathway_scores)
+                frames = (config_val_dataframe(ex.mean, ex.std, ex.names), pathway_df)
         return frames + (diag,) if return_diagnostics else frames

@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..utils import prng
+from ..utils import prng, profiling
 from .kernels import shap_kernel
 
 
@@ -118,27 +118,30 @@ def _fit(masks, model, graph, params, problem, query, num_elements, batch_size,
     auto_chunk = chunk_size is None
     if chunk_size is None:
         chunk_size = _default_chunk(epochs, batch_size)
-    masks_t = torch.as_tensor(masks, device=model.device)
-    # rows are independent: one chunked pass over all repeats' rows
-    outputs = model.perturbed_query_outputs(
-        graph, masks_t.reshape(t * m_used, width), problem, query,
-        chunk_size=chunk_size, auto_chunk=auto_chunk,
-    ).reshape(t, epochs, batch_size)
-    # the kernel's max-normalisation stays within each repeat's rows
-    kernels = shap_kernel(masks_t, num_valid_columns=num_elements)
-    w0 = torch.stack(
-        [init_surrogate_weights(k, width, num_elements) for k in init_keys]
-    )
-    return train_surrogate(
-        w0,
-        masks_t.to(torch.float32).reshape(t, epochs, batch_size, width),
-        outputs,
-        kernels.reshape(t, epochs, batch_size),
-        num_valid=num_elements,
-        lr=float(abs(params.get("lr", 0.01))),
-        l1_lambda=float(params.get("l1_lambda", 1e-4)),
-        weight_decay=float(params.get("weight_decay", 1e-2)),
-    )
+    with profiling.span("forwards"):
+        masks_t = torch.as_tensor(masks, device=model.device)
+        profiling.count("upload_bytes", masks.nbytes)
+        # rows are independent: one chunked pass over all repeats' rows
+        outputs = model.perturbed_query_outputs(
+            graph, masks_t.reshape(t * m_used, width), problem, query,
+            chunk_size=chunk_size, auto_chunk=auto_chunk,
+        ).reshape(t, epochs, batch_size)
+    with profiling.span("fit"):
+        # the kernel's max-normalisation stays within each repeat's rows
+        kernels = shap_kernel(masks_t, num_valid_columns=num_elements)
+        w0 = torch.stack(
+            [init_surrogate_weights(k, width, num_elements) for k in init_keys]
+        )
+        return train_surrogate(
+            w0,
+            masks_t.to(torch.float32).reshape(t, epochs, batch_size, width),
+            outputs,
+            kernels.reshape(t, epochs, batch_size),
+            num_valid=num_elements,
+            lr=float(abs(params.get("lr", 0.01))),
+            l1_lambda=float(params.get("l1_lambda", 1e-4)),
+            weight_decay=float(params.get("weight_decay", 1e-2)),
+        )
 
 
 def train_model_repeats(

@@ -20,6 +20,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .utils import profiling
 from .utils.device import resolve_device
 from .utils.padding import pad_budget
 
@@ -161,6 +162,7 @@ def graph_from_numpy(
         k: torch.from_numpy(v).to(device)
         for k, v in arrays.items()
     }
+    profiling.count("upload_bytes", sum(v.nbytes for v in arrays.values()))
     t["senders"] = t["senders"].long()
     t["receivers"] = t["receivers"].long()
     g = Graph(**t, num_nodes=int(num_nodes), num_edges=int(num_edges), typed=bool(typed))

@@ -68,6 +68,8 @@ NOT_PORTED = {
     "models/layers.py::kaiming_uniform_linear": "JAX init helper; weights are drawn by a "
                                                 "torch.Generator",
     "runtime/native.py::native_available": "the C++ graph library the port replaced with numpy",
+    "utils/profiling.py::annotate": "a recorded departure: profiling.span names a region, as a "
+                                    "bikg.<name> event in torch.profiler traces",
     **{f"ops/spmm_pallas.py::{n}": _ELL for n in (
         "CompactPlan", "build_compact_plan", "cluster_for_table", "plan_for_table",
         "spmm_ell_pallas",
