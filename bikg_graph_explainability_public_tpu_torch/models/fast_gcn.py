@@ -1,9 +1,10 @@
 """Batched masked forwards of a GCN node model (the explainer hot loop).
 
 Takes a :class:`.gnn.GCNNodeModel` and one padded graph, precomputes
-everything batch-invariant (the first layer's transformed features, the
-neighbour table, the dense adjacency or the query plans), and evaluates B
-node-mask or edge-mask perturbations at once:
+everything batch-invariant (the first layer's transformed features at
+construction; the query plans, the neighbour table and the dense adjacency
+on first use, the last two only by the unrestricted forwards that read
+them), and evaluates B node-mask or edge-mask perturbations at once:
 
 * **dense** tier (N_pad <= DENSE_THRESHOLD, the computational-subgraph
   case): a node-masked GCN layer is ``h_b = diag(s_b) A diag(s_b) XW +
@@ -27,6 +28,7 @@ import torch
 
 from ..graph import host_view
 from ..ops.ell import (
+    NeighborTable,
     build_neighbor_table,
     ell_aggregate_shared,
     gcn_coeffs_from_edge_mask,
@@ -35,6 +37,7 @@ from ..ops.ell import (
 from ..ops.gcn_layer_cuda import masked_gcn_layer, masked_gcn_layer_batched
 from ..ops.spmm import gather_sum_batched_separable, weighted_gather_sum_batched
 from ..runtime import native
+from ..utils import profiling
 from ..utils.device import resolve_device
 from ..utils.padding import round_up_pow2
 from .gnn import GCNNodeModel
@@ -267,6 +270,10 @@ class FastBatchedGCN:
     the JAX package's names: ``"xla"`` runs them as unfused torch ops,
     ``"pallas"`` as the fused hand-written CUDA layers (kernels 2.1 and
     2.2; their plain versions on the CPU).  It changes nothing else.
+
+    The neighbour table and the dense adjacency are built on first
+    unrestricted use (:attr:`table`, :attr:`adj`): receptive-field plans
+    read neither, so node and edge queries never pay for them.
     """
 
     def __init__(
@@ -298,12 +305,32 @@ class FastBatchedGCN:
         w0 = conv0.weight.detach().cpu().numpy()
         x_np = host_view(graph).x[:, : conv0.in_features]
         self.xw0 = torch.from_numpy(x_np @ w0.T).to(self.device)  # [N, C1]
-        # both tiers: edge-mask forwards of dense-mode engines use it too
-        self.table = build_neighbor_table(graph)
-        self.adj = _dense_adjacency(graph, self.device) if mode == "dense" else None
+        self._table: Optional[NeighborTable] = None  # see the properties
+        self._adj: Optional[torch.Tensor] = None
         self._adj16: Optional[torch.Tensor] = None  # bf16 copy, built once
         self._plans: dict = {}  # query -> Optional[QueryPlan]
         self._edge_plans: dict = {}  # query -> EdgeQueryPlan
+
+    @property
+    def table(self) -> NeighborTable:
+        """The graph's neighbour table, in both tiers (edge-mask forwards of
+        dense-mode engines use it too), built on first unrestricted use."""
+        if self._table is None:
+            t = self._table = build_neighbor_table(self.graph)
+            profiling.count("neighbor_table_builds", 1)
+            profiling.count("upload_bytes", sum(a.nbytes for a in (t.nbr, t.valid, t.eid)))
+        return self._table
+
+    @property
+    def adj(self) -> Optional[torch.Tensor]:
+        """Dense ``[N_pad, N_pad]`` adjacency of the dense tier (None in the
+        ELL tier), built on first unrestricted use: query plans never pay
+        its N^2 memory."""
+        if self._adj is None and self.mode == "dense":
+            self._adj = _dense_adjacency(self.graph, self.device)
+            profiling.count("dense_adjacency_builds", 1)
+            profiling.count("upload_bytes", self._adj.nbytes)
+        return self._adj
 
     def _coeffs(self, masks: torch.Tensor, is_edge: bool):
         fn = gcn_coeffs_from_edge_mask if is_edge else gcn_coeffs_from_node_mask

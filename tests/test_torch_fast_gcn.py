@@ -4,7 +4,8 @@ receptive-field plans for node and edge queries (dense tier), the
 unrestricted dense tier (unfused, and fused with ``backend="pallas"``), and
 the ELL tier, whose layers >= 2 run the separable gather-sum for node masks
 and the weighted gather-sum for edge masks (the JAX side on its v7 Pallas
-kernels in interpret mode)."""
+kernels in interpret mode); and which of the engine's structures each
+forward builds."""
 
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from bikg_graph_explainability_public_tpu_torch import graph as tgraph
 from bikg_graph_explainability_public_tpu_torch.models import fast_gcn as tfast
 from bikg_graph_explainability_public_tpu_torch.models.checkpoint import params_from_numpy
 from bikg_graph_explainability_public_tpu_torch.models.gnn import GCNNodeModel
+from bikg_graph_explainability_public_tpu_torch.utils import profiling
 
 from fixtures import make_graph
 
@@ -249,3 +251,49 @@ def test_pallas_backend_matches_xla_backend(small):
             e1 = tfast.FastBatchedGCN(tdef, tg, backend="pallas", restrict=restrict, device="cpu")
             e2 = tfast.FastBatchedGCN(tdef, tg, restrict=restrict, device="cpu")
             torch.testing.assert_close(e1.query_outputs(m, 5, prob), e2.query_outputs(m, 5, prob))
+
+
+@pytest.mark.parametrize("mode", ["dense", "ell"])
+def test_plans_build_neither_table_nor_adjacency(small, mode):
+    """Node and edge queries served by their plans leave the table and the
+    dense adjacency unbuilt, and answer exactly as an engine holding both."""
+    _, _, tdef, _, tg = small
+    lazy = tfast.FastBatchedGCN(tdef, tg, mode=mode, device="cpu")
+    built = tfast.FastBatchedGCN(tdef, tg, mode=mode, device="cpu")
+    assert built.table.k % 8 == 0 and (built.adj is None) == (mode == "ell")
+    for problem, make in (("node_prediction", _masks), ("edge_prediction", _edge_masks)):
+        m = torch.from_numpy(make(tg, 24, seed=13))
+        for q in (0, 57):
+            assert torch.equal(lazy.query_outputs(m, q, problem), built.query_outputs(m, q, problem))
+    assert lazy.query_plan(57) is not None
+    assert lazy._table is None and lazy._adj is None
+
+
+@pytest.mark.parametrize("mode", ["dense", "ell"])
+@pytest.mark.parametrize(
+    "problem,query,restrict",
+    [("node_prediction", 5, False), ("graph_prediction", None, True), ("edge_prediction", 5, False)],
+)
+def test_unrestricted_forwards_build_what_they_read_once(small, mode, problem, query, restrict):
+    """Unrestricted forwards build the structure they read on first use,
+    count it and its bytes, and reuse it: the dense tier's node masks read
+    the adjacency alone, edge masks and the ELL tier the table alone."""
+    _, _, tdef, _, tg = small
+    te = tfast.FastBatchedGCN(tdef, tg, mode=mode, restrict=restrict, device="cpu")
+    m = torch.from_numpy((_edge_masks if "edge" in problem else _masks)(tg, 12, seed=14))
+    with profiling.recording() as rec:
+        with profiling.span("forwards"):
+            first = te.query_outputs(m, query, problem, chunk_size=8)
+            table, adj = te._table, te._adj
+            second = te.query_outputs(m, query, problem, chunk_size=8)
+    assert torch.equal(first, second)
+    assert te._table is table and te._adj is adj
+    reads_adj = mode == "dense" and "edge" not in problem
+    assert (adj is not None) == reads_adj and (table is None) == reads_adj
+    counts = rec.totals()["forwards", "forwards"]
+    assert counts.get("dense_adjacency_builds", 0) == int(reads_adj)
+    assert counts.get("neighbor_table_builds", 0) == int(not reads_adj)
+    built = (adj,) if reads_adj else (table.nbr, table.valid, table.eid)
+    assert counts["upload_bytes"] == sum(a.nbytes for a in built)
+    if mode == "ell":
+        assert te.adj is None and te._adj is None

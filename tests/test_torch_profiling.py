@@ -20,6 +20,7 @@ from bikg_graph_explainability_public_tpu_torch.explain import batch as tbatch
 from bikg_graph_explainability_public_tpu_torch.explain import explainer as texplainer
 from bikg_graph_explainability_public_tpu_torch.graph import from_arrays
 from bikg_graph_explainability_public_tpu_torch.models.adapter import Model
+from bikg_graph_explainability_public_tpu_torch.models import fast_gcn as tfast
 from bikg_graph_explainability_public_tpu_torch.models.checkpoint import load_params
 from bikg_graph_explainability_public_tpu_torch.models.gnn import GCNNodeModel
 from bikg_graph_explainability_public_tpu_torch.ops.khop import extract_khop_subgraph
@@ -268,3 +269,35 @@ def test_khop_host_only_matches_device_form(toy, query, hops, pad_mode):
         assert isinstance(field, np.ndarray), name  # nothing was uploaded
         np.testing.assert_array_equal(field, getattr(dev.graph, name).numpy())
         assert getattr(host.graph.host, name) is field
+
+
+@pytest.mark.parametrize("ell", [False, True])
+def test_only_unrestricted_requests_build_the_engines_structures(toy, monkeypatch, ell):
+    """A node query, served by its plan, builds neither the neighbour table
+    nor the dense adjacency; a graph problem builds the one its tier reads,
+    once, and adds its bytes to the masks' under ``forwards``."""
+    if ell:
+        monkeypatch.setattr(tfast, "DENSE_THRESHOLD", 0)
+    feat, ei, names, cfg = toy
+    tm = Model(GCNNodeModel(84), load_params(CKPT), device="cpu")
+    node = texplainer.Explainer(feat, ei, tm, cfg, names, device="cpu")
+    graph = texplainer.Explainer(feat, ei, tm, cfg, names, problem="graph_prediction",
+                                 device="cpu")
+    with profiling.recording() as rec:
+        node.run("10", 2)
+    fwd = rec.totals()["run.request", "forwards"]
+    assert fwd.get("neighbor_table_builds", 0) == fwd.get("dense_adjacency_builds", 0) == 0
+    with profiling.recording() as rec:
+        graph.run(None, 2)
+    fwd = rec.totals()["run.request", "forwards"]
+    engine = tm._fast_cache[1]
+    assert engine.mode == ("ell" if ell else "dense")
+    assert fwd.get("neighbor_table_builds", 0) == int(ell)
+    assert fwd.get("dense_adjacency_builds", 0) == int(not ell)
+    if ell:
+        built = sum(a.nbytes for a in (engine.table.nbr, engine.table.valid, engine.table.eid))
+    else:
+        built = engine.adj.nbytes
+    n_pad = tm._fast_cache[0].n_pad
+    masks = 2 * cfg["interpret_samples"] * cfg["epochs"] * n_pad  # two repeats' bool masks
+    assert fwd["upload_bytes"] == masks + built
