@@ -1,6 +1,6 @@
 """What the drivers share: the query schedule, the traced slice of the
-window, the useful operations of an explanation, and the comparison with
-the plain reference that decides ``correct``."""
+window and the work done inside it, and the comparison with the plain
+reference that decides ``correct``."""
 
 from __future__ import annotations
 
@@ -15,20 +15,27 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from bench_port import graphgen, strata, trace
+from bench_port import graphgen, spans, strata, trace
 from bench_port.reference import explain as rx
 
 
 class Slice:
     """The profiled part of a traced window: from its first call until the
-    first call that ends ``seconds`` after the profiler started."""
+    first call that ends ``seconds`` after the profiler started.  From its
+    end until the window closes, the program's recorder (its
+    ``utils.profiling.recording()``, where it has one) keeps the spans of
+    the calls that the profiler does not slow."""
 
     def __init__(self, seconds: float):
         self.seconds = seconds
         self.active = False
+        self.calls = 0
+        self.genes: List[int] = []
+        self.recorder = None
         self._prof = None
         self._ann = None
         self._t0 = 0.0
+        self._recording = contextlib.ExitStack()
 
     def start(self) -> None:
         self._prof = trace.profiler()
@@ -39,25 +46,42 @@ class Slice:
         self.active = True
 
     def stop(self) -> None:
+        """End the profile and open the program's recorder."""
         if not self.active:
             return
         self._ann.__exit__(None, None, None)
         self._prof.__exit__(None, None, None)
         self.active = False
+        from bikg_graph_explainability_public_tpu_torch.utils import profiling
 
-    def maybe_stop(self) -> None:
-        """Stop once ``seconds`` have passed since the start (the
-        profiler's own start-up is not counted)."""
+        recording = getattr(profiling, "recording", None)
+        if recording is not None:
+            self.recorder = self._recording.enter_context(recording())
+
+    def close(self) -> None:
+        """Stop the slice, and the recorder after it."""
+        self.stop()
+        self._recording.close()
+
+    def add(self, genes: List[int]) -> None:
+        """Count a call of ``genes`` that ran inside the slice, and stop the
+        slice once ``seconds`` have passed since its start (the profiler's
+        own start-up is not counted)."""
+        self.calls += 1
+        self.genes += list(genes)
         if time.perf_counter() - self._t0 >= self.seconds:
             self.stop()
 
-    def summary(self, calls: int, explanations: int, flops: float) -> Optional[Dict]:
-        """The profile's numbers with the work done inside it, or None for
-        an untraced window."""
+    def summary(self, work: Dict, flops: Optional[float]) -> Optional[Dict]:
+        """The profile's numbers, the program's spans after it, and the work
+        done inside it, or None for an untraced window."""
         if self._prof is None:
             return None
         out = trace.summarize(self._prof)
-        out.update(calls=calls, explanations=explanations, useful_flops=flops)
+        out.update(calls=self.calls, explanations=len(self.genes), work=work, useful_flops=flops)
+        out.update(spans.idle_split(self._prof) or {})
+        if self.recorder is not None:
+            out["spans"] = spans.recorded(self.recorder)
         return out
 
 
@@ -92,17 +116,26 @@ class Base:
         try:
             yield s
         finally:
-            s.stop()
+            s.close()
 
-    def flops(self, genes) -> float:
-        """Useful operations of explaining ``genes`` (the yardstick of
-        ``metrics/_opcount.py``)."""
+    def profile(self, slice_: Slice) -> Optional[Dict]:
+        """The profiled slice's summary with its ``work``: each explanation's
+        subgraph ``[nodes, edges]`` (``queries``) and the ``rows``,
+        ``epochs`` and ``times`` of each; and ``useful_flops``, the
+        family's count of that work (``metrics/_opcount.py``), None for a
+        family that has no count."""
         from bench_port.metrics import _opcount
 
-        rows = int(self.explain_cfg["interpret_samples"]) * int(self.explain_cfg["epochs"])
-        return sum(_opcount.explanation_flops(
-            self.ctx.model_cfg, int(self.nodes[g]), int(self.edges[g]), rows,
-            int(self.explain_cfg["epochs"]), int(self.traffic["times"])) for g in genes)
+        epochs = int(self.explain_cfg["epochs"])
+        work = {"queries": [[int(self.nodes[g]), int(self.edges[g])] for g in slice_.genes],
+                "rows": int(self.explain_cfg["interpret_samples"]) * epochs, "epochs": epochs,
+                "times": int(self.traffic["times"])}
+        count = _opcount.count_for(self.ctx.model_cfg["family"],
+                                   os.path.join(self.ctx.reg.root, "metrics"))
+        flops = None if count is None else sum(
+            count(self.ctx.model_cfg, n, e, work["rows"], epochs, work["times"])
+            for n, e in work["queries"])
+        return slice_.summary(work, flops)
 
     @staticmethod
     def show_failure() -> None:

@@ -62,8 +62,6 @@ class Driver(common.Base):
         timer = PhaseTimer() if trace else None
         calls, failed, attempted = 0, 0, 0
         answers, call_s = [], []
-        prof_calls = prof_expl = 0
-        prof_flops = 0.0
         with self.profile_slice(trace) as slice_:
             t0 = time.perf_counter()
             while True:
@@ -82,10 +80,7 @@ class Driver(common.Base):
                     for pos, (g, frame) in enumerate(zip(genes, exs)):
                         answers.append(dict(self.frame_answer(g, frame), position=pos))
                 if slice_.active:
-                    prof_calls += 1
-                    prof_expl += len(genes)
-                    prof_flops += self.flops(genes)
-                    slice_.maybe_stop()
+                    slice_.add(genes)
                 if time.perf_counter() - t0 >= seconds:
                     break
         window_s = time.perf_counter() - t0
@@ -95,7 +90,7 @@ class Driver(common.Base):
             "entry": "explain_many", "window_s": window_s, "calls": calls,
             "explanations": done, "attempted": attempted, "failed": failed, "call_s": call_s,
             "phases_s": dict(timer.totals) if timer else None,
-            "profile": slice_.summary(prof_calls, prof_expl, prof_flops),
+            "profile": self.profile(slice_),
         }
 
     def free(self) -> None:

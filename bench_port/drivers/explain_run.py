@@ -57,8 +57,6 @@ class Driver(common.Base):
         sends the same mix of classes."""
         lat, answers, phases = [], [], {}
         failed = attempted = 0
-        prof_req = 0
-        prof_flops = 0.0
         with self.profile_slice(trace) as slice_:
             t0 = time.perf_counter()
             while True:
@@ -78,9 +76,7 @@ class Driver(common.Base):
                     for k, v in (diag or {}).get("phase_seconds", {}).items():
                         phases[k] = phases.get(k, 0.0) + v
                 if slice_.active:
-                    prof_req += 1
-                    prof_flops += self.flops([gene])
-                    slice_.maybe_stop()
+                    slice_.add([gene])
                 if not self._queue and time.perf_counter() - t0 >= seconds:
                     break
         self.answers = answers
@@ -89,7 +85,7 @@ class Driver(common.Base):
             "requests": len(lat), "latencies_s": lat, "explanations": len(answers),
             "attempted": attempted, "failed": failed,
             "phases_s": phases if trace else None,
-            "profile": slice_.summary(prof_req, prof_req, prof_flops),
+            "profile": self.profile(slice_),
         }
 
     def free(self) -> None:

@@ -8,9 +8,22 @@ after the first, and the head on the query row.  The first layer's ``X W``
 is shared by every mask and counted once an explanation (a relation).
 Each surrogate epoch adds its two ``[bs, W]`` products (``4 bs W``).  A
 dense formulation's ``n^2`` work is not useful work and does not count.
+
+That is the count of the ``gcn`` and ``hetero_gcn`` families.  Another
+family's count is ``explanation_flops`` of its own file,
+``_opcount_<family>.py`` beside this one, with the same signature;
+:func:`count_for` finds it.
 """
 
 from __future__ import annotations
+
+import importlib.util
+import os
+from typing import Callable, Optional
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+#: the families whose work :func:`explanation_flops` counts
+GCN_FAMILIES = ("gcn", "hetero_gcn")
 
 
 def explanation_flops(model: dict, nodes: int, edges: int, rows: int, epochs: int,
@@ -30,3 +43,18 @@ def explanation_flops(model: dict, nodes: int, edges: int, rows: int, epochs: in
     bs = rows // epochs
     surrogate = epochs * 4.0 * bs * nodes
     return first + times * (rows * per_row + surrogate)
+
+
+def count_for(family: str, folder: str = HERE) -> Optional[Callable[..., float]]:
+    """The operation count of ``family``: :func:`explanation_flops` for the
+    GCN families, ``explanation_flops`` of ``<folder>/_opcount_<family>.py``
+    where that file exists, else None (no family is counted as another)."""
+    if family in GCN_FAMILIES:
+        return explanation_flops
+    path = os.path.join(folder, f"_opcount_{family}.py")
+    if not os.path.exists(path):
+        return None
+    spec = importlib.util.spec_from_file_location(f"bench_port.metrics._opcount_{family}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.explanation_flops

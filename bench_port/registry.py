@@ -2,7 +2,6 @@
 
 from __future__ import annotations
 
-import importlib
 import importlib.util
 import json
 import os
@@ -59,7 +58,7 @@ class Registry:
         return self._module("families", name)
 
     def reference_family(self, name: str) -> ModuleType:
-        return importlib.import_module(f"bench_port.reference.{name}")
+        return self._module("reference", name)
 
     def driver(self, entry: str) -> ModuleType:
         return self._module("drivers", entry)

@@ -17,12 +17,12 @@ from bench_port.registry import Registry
 from conftest import CHECKOUT, tiny_graph_block
 
 CELLS = [w["name"] for w in Registry().bench["workloads"]]
-FAMILIES = ["gcn16-hetionet-genes", "hgcn16-hetionet-genes3"]
+CONFIGS = {c["name"]: c["file"] for c in Registry().bench["configs"]}
 
 
-@pytest.mark.parametrize("config", FAMILIES)
+@pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_family_forward_matches_the_program(config):
-    with open(os.path.join(CHECKOUT, f"bench_port/configs/{config}.json")) as f:
+    with open(os.path.join(CHECKOUT, CONFIGS[config])) as f:
         cfg = json.load(f)
     reg = Registry()
     fam = reg.family(cfg["model"]["family"])
@@ -33,7 +33,8 @@ def test_family_forward_matches_the_program(config):
     model = fam.program_model(cfg["model"], params, "cpu")
     ptr, col = graphgen.in_neighbour_csr(gg.n, edges)
     query = int(np.argmax(np.bincount(edges[1], minlength=gg.n)))
-    sub = rx.subgraph(graphgen.khop_nodes(ptr, col, query, 2), edges, etype, query)
+    hops = len(cfg["model"]["conv_channels"]) + 1
+    sub = rx.subgraph(graphgen.khop_nodes(ptr, col, query, hops), edges, etype, query)
     x = torch.as_tensor(gg.x[sub.nodes])
     masks = (torch.rand(16, sub.nodes.size, generator=torch.Generator().manual_seed(0)) < 0.5)
     want = ref.query_outputs(params, x, sub, masks.float(), rx.Precision(False))

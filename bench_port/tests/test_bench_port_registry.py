@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 
 from bench_port import run
 from bench_port.registry import Registry
@@ -94,3 +95,48 @@ def test_no_timed_call_is_served_from_the_launch_plan_cache(tiny_bench, monkeypa
                 if tiny_bench.traffic(w["traffic"])["entry"] == "explain_many")
     result, _ = run.run_cell(tiny_bench, cell, 2**31 + 13, 1.0, False, "cpu")
     assert result["correct"] and hits and not any(hits)
+
+
+TOY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "toy_family")
+
+
+def test_a_family_that_is_not_gcn_is_added_by_files_alone(package_copy, tmp_path, monkeypatch):
+    """A GraphConv family, its reference, configuration, traffic and limits
+    added as files to a copy of the harness: its cell runs correct, and
+    reports a whole-step share only once its operation count is added too."""
+    from bench_port.metrics import _peaks
+
+    family = "toy_graph_conv"
+    for folder in ("families", "reference"):
+        shutil.copy(os.path.join(TOY, folder, family + ".py"), package_copy / folder)
+    with open(os.path.join(CHECKOUT, "bench_port/configs/gcn16-hetionet-genes.json")) as f:
+        cfg = json.load(f)
+    cfg["graph"] = tiny_graph_block(cfg["graph"])
+    cfg["model"]["family"] = family
+    (package_copy / "configs" / "toy-genes.json").write_text(json.dumps(cfg))
+    traffic = json.loads((package_copy / "traffic" / "run-shapley.json").read_text())
+    traffic.update(cycle=4, times=1, warmup_rounds=0, check_answers=3)
+    (package_copy / "traffic" / "run-toy.json").write_text(json.dumps(traffic))
+    cell = "toy-genes.run-toy"
+    (package_copy / "checks" / f"{cell}.json").write_text(
+        (package_copy / "checks" / "gcn16-hetionet-genes.run-shapley.json").read_text())
+    bench = {
+        "configs": [{"name": "toy-genes", "file": "bench_port/configs/toy-genes.json"}],
+        "workloads": [{"name": cell, "config": "toy-genes", "traffic": "run-toy", "chips": 1}],
+        "end_to_end": [{"name": "explain_p50_s", "unit": "s"}, {"name": "setup_s", "unit": "s"}],
+        "per_layer": [{"name": n, "unit": u, "layer": "whole step", "moves": "explain_p50_s",
+                       "workloads": [cell]}
+                      for n, u in (("mfu_pct.run", "%"), ("launches_per_expl.run", "launches"))],
+    }
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    reg = Registry(root=str(package_copy), benchmark=str(tmp_path / "BENCHMARK.json"))
+    # a stand-in peak for the CPU, so that only the count decides whether the share is read
+    monkeypatch.setitem(_peaks.FP32_FLOPS, "cpu", 1e12)
+    result, checks = run.run_cell(reg, cell, 2**31 + 17, 0.0, True, "cpu")
+    assert result["correct"] and result["failed"] == 0, checks
+    assert set(result["metrics"]) == {"launches_per_expl.run"}
+    shutil.copy(os.path.join(TOY, f"_opcount_{family}.py"), package_copy / "metrics")
+    result, checks = run.run_cell(reg, cell, 2**31 + 17, 0.0, True, "cpu")
+    assert result["correct"], checks
+    assert set(result["metrics"]) == {"launches_per_expl.run", "mfu_pct.run"}
+    assert result["metrics"]["mfu_pct.run"]["value"] > 0

@@ -1,12 +1,20 @@
 """The split of the card's idle time among the program's spans, and the
-span readers, on hand-made intervals and records."""
+span readers, on hand-made intervals and records; the recorder a traced
+run opens after its profiled slice, and the readings it gives."""
 
 from __future__ import annotations
+
+import json
+import math
 
 import numpy as np
 import pytest
 
 from bench_port import spans
+from bench_port.metrics import _opcount
+from bench_port.registry import Registry
+
+CELLS = [w["name"] for w in Registry().bench["workloads"]]
 
 MS = 1_000_000  # ns
 
@@ -85,3 +93,85 @@ def test_a_profile_and_a_recorder_give_the_split_and_the_totals():
     record = {"profile": dict(spans=rec_totals, window_s=0.04, busy_s=0.0, **split)}
     assert spans.readings(record)["upload_mb.run"] == pytest.approx(3.0)
     assert spans.readings(record)["prepare_graph_ms.run"] == pytest.approx(20, abs=5)
+
+
+class _Clock:
+    """A driver's clock that moves ``step`` seconds at each reading, so
+    that a window holds the same calls however loaded the machine is."""
+
+    def __init__(self, step: float):
+        self.step = step
+        self.now = 0.0
+
+    def perf_counter(self) -> float:
+        self.now += self.step
+        return self.now
+
+
+class _ClockedRegistry(Registry):
+    """A registry whose drivers read :class:`_Clock` (the profiled slice
+    and the run's set-up keep the real clock)."""
+
+    def driver(self, entry: str):
+        mod = super().driver(entry)
+        mod.time = _Clock(0.1)
+        return mod
+
+
+@pytest.fixture
+def traced_bench(tiny_bench, package_copy):
+    """``tiny_bench`` over a copy of the harness whose traffic profiles only
+    the first call or request, so that the recorder keeps the rest of the
+    window, and whose ``explain_many`` calls are small; its drivers' clock
+    gives a 1 s window four ``explain_many`` calls (a run cell's window is
+    whole cycles of requests)."""
+    for path in (package_copy / "traffic").glob("*.json"):
+        traffic = json.loads(path.read_text())
+        traffic["trace_seconds"] = 0
+        if traffic["entry"] == "explain_many":
+            traffic.update(queries_per_call=2, times=1, check_answers=4)
+        path.write_text(json.dumps(traffic))
+    return _ClockedRegistry(root=str(package_copy), benchmark=tiny_bench.benchmark_path)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_traced_run_records_the_spans_after_its_profiled_slice(traced_bench, cell):
+    from bench_port import run
+
+    result, checks = run.run_cell(traced_bench, cell, 2**31 + 43, 1.0, True, "cpu")
+    assert result["correct"], checks
+    new = {m["name"] for m in traced_bench.bench["per_layer"] if m["name"] in spans.READINGS
+           and cell in m["workloads"]}
+    assert new and new <= set(result["metrics"])
+    assert all(math.isfinite(result["metrics"][n]["value"]) for n in new)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_the_recorder_keeps_the_calls_after_the_profiled_slice(traced_bench, cell):
+    """Only a traced window opens the recorder, after its profiled slice,
+    and closes it with the window; the slice's work is in its record, and
+    its count of operations is the GCN count of that work."""
+    from bench_port import run
+    from bikg_graph_explainability_public_tpu_torch.utils import profiling
+
+    ctx = run.Context(traced_bench, cell, 2**31 + 45, "cpu")
+    traffic = dict(ctx.traffic, warmup_calls=0, warmup_rounds=0)
+    driver = traced_bench.driver(traffic["entry"]).Driver(ctx, traffic)
+    driver.setup()
+    untraced = driver.window(0.0, False)
+    assert untraced["profile"] is None and profiling._recorder is None
+    rec = driver.window(1.0, True)
+    assert profiling._recorder is None
+    p = rec["profile"]
+    root = {"explain_many": "many.call", "explain_run": "run.request"}[traffic["entry"]]
+    after = rec.get("calls", rec.get("requests")) - p["calls"]
+    assert p["spans"]["roots"][root] == after > 0
+    work = p["work"]
+    assert len(work["queries"]) == p["explanations"] > 0
+    ex = traffic["explain"]
+    assert (work["rows"], work["epochs"], work["times"]) == (
+        ex["interpret_samples"] * ex["epochs"], ex["epochs"], traffic["times"])
+    assert p["useful_flops"] == sum(_opcount.explanation_flops(
+        ctx.model_cfg, n, e, work["rows"], work["epochs"], work["times"])
+        for n, e in work["queries"]) > 0
+    assert set(p["device_op_s"]) >= {n for n, _ in p["device_ops"]}

@@ -4,8 +4,9 @@ The profiler records the card's activity (kernels, copies, sets) and the
 host's (operators, CUDA runtime calls, annotations) on one clock.  From
 them: the window (the ``bench_port.window`` annotation), the seconds in
 which anything ran on the card (the union of its intervals), the kernels
-launched, the device operations that took most time, and the longest idle
-gaps of the card by what the host was doing then.
+launched, every device operation's seconds (the ten that took most time
+again apart, for the result's ``breakdown``), and the longest idle gaps of
+the card by what the host was doing then.
 """
 
 from __future__ import annotations
@@ -41,8 +42,9 @@ def _union(starts: np.ndarray, ends: np.ndarray):
 
 
 def summarize(prof) -> Dict:
-    """``window_s``, ``busy_s``, ``kernels`` and ``breakdown`` of the
-    profiled window."""
+    """``window_s``, ``busy_s``, ``kernels``, ``device_op_s`` (seconds by
+    full name, every operation) and the top ten ``device_ops`` and
+    ``idle_gaps`` of the profiled window."""
     events = prof.profiler.kineto_results.events()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     win = [e for e in events if e.name() == WINDOW and e.device_type() == cpu]
@@ -82,6 +84,7 @@ def summarize(prof) -> Dict:
         "window_s": (w1 - w0) * 1e-9,
         "busy_s": busy_ns * 1e-9,
         "kernels": kernels,
+        "device_op_s": dict(per_op),
         "device_ops": sorted(per_op.items(), key=lambda kv: -kv[1])[:10],
         "idle_gaps": _gaps_by_host(gs, ge, host)[:10],
     }
